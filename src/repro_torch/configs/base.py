@@ -1,0 +1,35 @@
+"""Config schema of the LIRA system (counterpart of
+``repro/configs/base.py:LiraSystemConfig``; the other architectures' configs
+are not part of the port)."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+
+@dataclasses.dataclass(frozen=True)
+class LiraSystemConfig:
+    """The paper's own system. Field names and defaults match the JAX config,
+    so a JAX checkpoint's ``extra.config`` maps onto it (see
+    ``serving.engine.LiraEngine.load_jax``)."""
+    arch: str
+    dim: int
+    n_partitions: int
+    capacity: int
+    k: int
+    nprobe_max: int
+    q_hidden: Sequence[int] = (256, 128)
+    i_hidden: Sequence[int] = (128,)
+    p_hidden: Sequence[int] = (256,)
+    dtype: str = "float32"
+    store_dtype: str = "float32"    # vector storage (bfloat16 halves scan reads)
+    q_cap_factor: float = 2.0       # query-dispatch slack (compute ∝ this)
+    auto_q_cap: bool = False        # engine doubles q_cap_factor after
+                                    # persistent q_cap overflow
+    impl: str = "auto"              # kernel backend: auto | ref | cuda
+    tier: str = "f32"               # serving tier; only f32 is ported so far
+    pq_m: int = 16                  # PQ knobs, carried for checkpoint parity
+    pq_ks: int = 256
+    rerank: int = 4
+    eta: float = 0.0                # replica fraction (from BuildConfig.eta)
+    repartition_threshold: float = 0.25

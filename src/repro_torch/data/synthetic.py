@@ -1,0 +1,72 @@
+"""Deterministic synthetic vector datasets (numpy only; a copy of
+``repro/data/synthetic.py:make_vector_dataset`` so the port stands alone).
+
+A SIFT-like high-dimensional mixture:
+  * ``n_modes`` anisotropic Gaussian clusters with power-law weights (local
+    density variation — the paper's source of long-tail kNN),
+  * a fraction of points placed on *segments between* cluster centers
+    (boundary points — these become the long-tail data points),
+  * a uniform background floor.
+Queries are drawn from the same process (held out).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+
+
+class VectorDataset(NamedTuple):
+    base: np.ndarray     # [N, d] f32
+    queries: np.ndarray  # [Q, d] f32
+    name: str
+
+
+def make_vector_dataset(
+    name: str = "sift-like",
+    n: int = 100_000,
+    n_queries: int = 1_000,
+    dim: int = 128,
+    *,
+    n_modes: int = 200,
+    boundary_frac: float = 0.4,
+    noise_frac: float = 0.02,
+    center_scale: float = 1.5,
+    spread: float = 2.0,
+    seed: int = 0,
+) -> VectorDataset:
+    """Hardness calibrated against the paper's SIFT statistics (B=64, k=100):
+    nprobe* ≈ 5, centroid-rank probing waste ≈ 7, long-tail queries ≈ 54%."""
+    rng = np.random.default_rng(seed)
+    total = n + n_queries
+
+    centers = rng.normal(0, 1.0, (n_modes, dim)).astype(np.float32) * center_scale
+    # anisotropic scales per mode (curse-of-dim local density variation)
+    scales = (0.3 + rng.gamma(2.0, 0.25, (n_modes, dim))).astype(np.float32) * spread
+    weights = rng.pareto(1.5, n_modes) + 0.05
+    weights /= weights.sum()
+
+    n_bound = int(total * boundary_frac)
+    n_noise = int(total * noise_frac)
+    n_core = total - n_bound - n_noise
+
+    modes = rng.choice(n_modes, n_core, p=weights)
+    core = centers[modes] + rng.normal(0, 1, (n_core, dim)).astype(np.float32) * scales[modes]
+
+    # boundary points: on segments between pairs of (near) cluster centers
+    a = rng.choice(n_modes, n_bound, p=weights)
+    # partner = nearest-ish other mode (random among 5 nearest)
+    c2 = ((centers[:, None] - centers[None]) ** 2).sum(-1)
+    np.fill_diagonal(c2, np.inf)
+    near5 = np.argsort(c2, 1)[:, :5]
+    b = near5[a, rng.integers(0, 5, n_bound)]
+    t = rng.beta(2, 2, n_bound).astype(np.float32)[:, None]
+    bound = centers[a] * (1 - t) + centers[b] * t
+    bound += rng.normal(0, 1, (n_bound, dim)).astype(np.float32) * 0.5 * (scales[a] + scales[b]) / 2
+
+    lo, hi = centers.min(), centers.max()
+    noise = rng.uniform(lo, hi, (n_noise, dim)).astype(np.float32)
+
+    x = np.concatenate([core, bound, noise]).astype(np.float32)
+    rng.shuffle(x)
+    return VectorDataset(base=x[:n], queries=x[n:], name=name)

@@ -1,0 +1,55 @@
+"""Backend dispatch for the kernels (counterpart of ``repro/kernels/ops.py``).
+
+Two impls: ``"ref"`` (the plain PyTorch versions in ``ref.py``, on any device)
+and ``"cuda"`` (the hand-written kernels; for CPU tensors their wrappers take
+the plain version). ``impl=None`` follows ``default_impl`` of the tensors'
+device. Output rules are the reference's: ids below 0 mark padding, and when
+k exceeds the pool the tail is inf / -1.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import dedup_topk as _dd
+from repro_torch.kernels import l2_topk as _l2
+from repro_torch.kernels import ref as _ref
+
+IMPLS = ("ref", "cuda")
+
+
+def default_impl(device) -> str:
+    """One backend policy for every dispatch layer: the kernels on a CUDA
+    device, the plain versions elsewhere."""
+    return "cuda" if torch.device(device).type == "cuda" else "ref"
+
+
+def resolve_impl(impl: str | None, device) -> str:
+    """Map None/"auto" to ``default_impl(device)``; fail fast on typos."""
+    if impl in (None, "auto"):
+        return default_impl(device)
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; expected one of "
+                         f"('auto', {', '.join(repr(s) for s in IMPLS)})")
+    return impl
+
+
+def l2_topk_qbuf(q_pad, qbuf, cands, cand_ids, k: int, *, impl: str | None = None):
+    """Dispatch-buffer top-k scan: compact ``q_pad`` [R, d] + ``qbuf`` [B, S]
+    indices vs [B, C, d] candidate sets → ([B, S, k], [B, S, k])."""
+    impl = resolve_impl(impl, cands.device)
+    qbuf = qbuf.to(torch.int32)
+    cand_ids = cand_ids.to(torch.int32)
+    if impl == "ref":
+        return _ref.l2_topk_qbuf_ref(q_pad, qbuf, cands, cand_ids, k)
+    return _l2.l2_topk_qbuf(q_pad, qbuf, cands, cand_ids, k)
+
+
+def dedup_topk(dists, ids, k: int, *, impl: str | None = None):
+    """Replica-aware merge: collapse duplicate ids to their best distance,
+    then exact top-k ordered by (dist, id)."""
+    impl = resolve_impl(impl, dists.device)
+    dists = dists.to(torch.float32)
+    ids = ids.to(torch.int32)
+    if impl == "ref":
+        return _ref.dedup_topk_ref(dists, ids, k)
+    return _dd.dedup_topk(dists, ids, k)
