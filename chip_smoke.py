@@ -7,8 +7,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   1. device  — the card's name and power limit, torch and CUDA versions;
   2. build   — nvcc compiles every kernel under src/repro_torch/csrc/, all at once;
   3. edges   — each kernel against its plain PyTorch version on the card, at
-               edge cases (padding ids, k > pool, duplicate ids, exact ties,
-               non-finite distances, bf16 store, empty slots);
+               repro_torch.testing's edge cases (padding ids, k > pool,
+               duplicate ids, exact ties, non-finite distances, bf16 store,
+               empty slots, buckets and rows with nothing valid) at the main
+               path's widths, under the same rule the tests use;
   4. main    — the main path at the lira-ann widths (dim 128, B = 1024
                partitions, k = 100, nprobe_max = 64) over 1,000,000 base points
                and 10,000 queries (SIFT1M's scale): LiraEngine.build on the
@@ -36,7 +38,6 @@ N_BASE, N_QUERIES, BATCH = 1_000_000, 10_000, 1_000
 HBM_BYTES_PER_S = 3.35e12               # H100 SXM data sheet
 PEAK_OPS = {"float32": 67e12,           # CUDA-core f32 (no tensor cores)
             "bfloat16": 989e12}         # dense bf16 tensor-core rate
-RTOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -44,144 +45,55 @@ def log(msg: str) -> None:
 
 
 # ---------------------------------------------------------------- comparison
-
-def check_topk(what, d_k, i_k, d_p, i_p, atol, *, exact_ids=False) -> float:
-    """Hold a kernel's top-k against the plain version's: the same finite
-    pattern, distances within rtol 1e-5 / ``atol``, ids equal per row as sets
-    except among candidates whose distances tie within the tolerance at the
-    k-th place (or equal element for element with ``exact_ids``). Returns the
-    max abs distance error."""
-    import torch
-
-    d_k, d_p = d_k.reshape(-1, d_k.shape[-1]), d_p.reshape(-1, d_p.shape[-1])
-    i_k, i_p = i_k.reshape(-1, i_k.shape[-1]), i_p.reshape(-1, i_p.shape[-1])
-    fin = torch.isfinite(d_p)
-    if not torch.equal(torch.isfinite(d_k), fin):
-        raise AssertionError(f"{what}: finite pattern differs")
-    if not torch.equal(i_k[~fin], i_p[~fin]):
-        raise AssertionError(f"{what}: padding ids differ")
-    err = float((d_k[fin] - d_p[fin]).abs().max()) if bool(fin.any()) else 0.0
-    if not torch.allclose(d_k[fin], d_p[fin], rtol=RTOL, atol=atol):
-        raise AssertionError(f"{what}: distances differ by up to {err} (atol {atol})")
-    if exact_ids:
-        if not torch.equal(i_k, i_p):
-            raise AssertionError(f"{what}: ids differ")
-        return err
-    bad = (torch.sort(i_k, -1).values != torch.sort(i_p, -1).values).any(-1)
-    for r in torch.nonzero(bad).flatten().tolist():
-        fr = fin[r]
-        kth = float(d_p[r][fr].max())
-        dist = {int(i): float(d) for i, d in zip(i_p[r][fr], d_p[r][fr])}
-        dist.update({int(i): float(d) for i, d in zip(i_k[r][fr], d_k[r][fr])})
-        diff = set(i_k[r].tolist()) ^ set(i_p[r].tolist())
-        tol = atol + RTOL * abs(kth)
-        if any(dist[i] < kth - tol for i in diff):
-            raise AssertionError(f"{what}: row {r} ids differ beyond ties at the k-th "
-                                 f"place: {sorted(diff)}")
-    return err
-
-
-def l2_atol(q_pad, qbuf, cands, cand_ids) -> float:
-    """1e-5 · max(‖q‖² + ‖c‖²) over the occupied queries and valid
-    candidates: the expansion loses precision in proportion to the norms."""
-    import torch
-
-    rows = qbuf[qbuf < q_pad.shape[0] - 1].long()
-    qn = float((q_pad[rows].float() ** 2).sum(-1).max()) if rows.numel() else 0.0
-    cn = (cands.float() ** 2).sum(-1)
-    cn = float(cn[cand_ids >= 0].max()) if bool((cand_ids >= 0).any()) else 0.0
-    return 1e-5 * max(qn + cn, 1.0)
-
-
-def occupied(qbuf, n_rows):
-    return qbuf < n_rows - 1
-
+# the rule and the edge cases are repro_torch.testing's, which the tests share
 
 def compare_l2(what, q_pad, qbuf, cands, cand_ids, k, *, exact_ids=False) -> float:
     """Kernel vs plain version on the occupied slots."""
+    import torch
+
+    from repro_torch import testing as rt
     from repro_torch.kernels import ops as kops
 
     d_k, i_k = kops.l2_topk_qbuf(q_pad, qbuf, cands, cand_ids, k, impl="cuda")
     d_p, i_p = kops.l2_topk_qbuf(q_pad, qbuf, cands, cand_ids, k, impl="ref")
-    occ = occupied(qbuf, q_pad.shape[0])
-    empty = ~occ
+    occ = rt.occupied(q_pad, qbuf)
     # on the card empty slots are skipped; the plain version (also what the
     # wrapper runs for CPU tensors) scans them against the sentinel row
-    if q_pad.is_cuda and bool(empty.any()) and not (bool((d_k[empty] == float("inf")).all())
-                                  and bool((i_k[empty] == -1).all())):
+    if not (bool(torch.isinf(d_k[~occ]).all()) and bool((i_k[~occ] == -1).all())):
         raise AssertionError(f"{what}: empty slots not flushed as inf / -1")
-    return check_topk(what, d_k[occ], i_k[occ], d_p[occ], i_p[occ],
-                      l2_atol(q_pad, qbuf, cands, cand_ids), exact_ids=exact_ids)
+    return rt.assert_topk_match(d_k[occ], i_k[occ], d_p[occ], i_p[occ],
+                                rt.qbuf_atol(q_pad, qbuf, cands, cand_ids),
+                                exact_ids=exact_ids, what=what)
 
 
 def compare_dedup(what, dists, ids, k) -> float:
     """Kernel vs plain version: no arithmetic, so equal element for element."""
+    from repro_torch import testing as rt
     from repro_torch.kernels import ops as kops
 
     d_k, i_k = kops.dedup_topk(dists, ids, k, impl="cuda")
     d_p, i_p = kops.dedup_topk(dists, ids, k, impl="ref")
-    return check_topk(what, d_k, i_k, d_p, i_p, 0.0, exact_ids=True)
+    return rt.assert_topk_match(d_k, i_k, d_p, i_p, 0.0, exact_ids=True, what=what)
 
 
 def edge_cases(dev) -> None:
-    """Each kernel against its plain version at the edge cases."""
+    """Each kernel against its plain version at every edge case, at the main
+    path's widths (d = 128, k = 100; merge rows of 102,400 entries)."""
     import torch
 
-    g = torch.Generator(device="cpu").manual_seed(0)
+    from repro_torch import testing as rt
 
-    def l2_case(b, s, c, d, k, *, dtype=torch.float32, empty_frac=0.5, hole_frac=0.1,
-                integer=False, n_rows=300):
-        if integer:  # small integers: exact distances, so exact ties
-            cands = torch.randint(-3, 4, (b, c, d), generator=g).float()
-            cands[:, 1::2] = cands[:, ::2][:, :c // 2]  # duplicate rows, distinct ids
-            q = torch.randint(-3, 4, (n_rows, d), generator=g).float()
-        else:
-            cands = torch.randn((b, c, d), generator=g) * 3
-            q = torch.randn((n_rows, d), generator=g) * 3
-        q_pad = torch.cat([q, torch.full((1, d), 1e9)])
-        ids = torch.randperm(b * c, generator=g).reshape(b, c).int()
-        ids[torch.rand((b, c), generator=g) < hole_frac] = -1
-        ids[:, c - c // 5:] = -1                                   # padding tail
-        qbuf = torch.randint(0, n_rows, (b, s), generator=g).int()
-        qbuf[torch.rand((b, s), generator=g) < empty_frac] = n_rows
-        return (q_pad.to(dev, dtype), qbuf.to(dev), cands.to(dev, dtype), ids.to(dev), k)
-
-    cases = {
-        "f32 holes+padding": l2_case(8, 16, 300, 128, 100),
-        "bf16 store": l2_case(8, 16, 300, 128, 100, dtype=torch.bfloat16),
-        "k > C": l2_case(4, 8, 37, 128, 100),
-        "d % 4 != 0, 80 occupied slots": l2_case(4, 80, 200, 13, 10, empty_frac=0.0),
-        "all slots empty": l2_case(2, 8, 64, 128, 100, empty_frac=1.0),
-    }
-    b_empty = l2_case(3, 8, 64, 16, 5)
-    b_empty[3][1] = -1                                             # a bucket of holes only
-    cases["bucket without candidates"] = b_empty
-    for what, args in cases.items():
-        err = compare_l2(what, *args)
-        log(f"edges  l2_topk_qbuf  {what}: ok (max abs err {err:.3g})")
-    err = compare_l2("exact ties", *l2_case(6, 16, 120, 32, 20, integer=True), exact_ids=True)
-    log(f"edges  l2_topk_qbuf  exact ties: ok, ids equal (max abs err {err:.3g})")
-
-    def dedup_case(q, p, n_ids, *, valid_frac=0.3, integer=False):
-        d = (torch.randint(0, 50, (q, p), generator=g).float() if integer
-             else torch.rand((q, p), generator=g) * 100)
-        ids = torch.randint(0, n_ids, (q, p), generator=g).int()
-        ids[torch.rand((q, p), generator=g) > valid_frac] = -1
-        d[torch.rand((q, p), generator=g) < 0.05] = float("inf")
-        d[torch.rand((q, p), generator=g) < 0.02] = float("nan")
-        return d.to(dev), ids.to(dev)
-
-    dcases = {
-        "duplicates, inf/nan, padding": (*dedup_case(16, 20_000, 2_000), 100),
-        "exact ties": (*dedup_case(16, 5_000, 400, integer=True), 100),
-        "k > P": (*dedup_case(8, 50, 30), 100),
-        "dense rows (many merges)": (*dedup_case(4, 102_400, 50_000, valid_frac=1.0), 100),
-        "no valid entry": (torch.full((4, 300), float("inf"), device=dev),
-                           torch.full((4, 300), -1, dtype=torch.int32, device=dev), 100),
-    }
-    for what, (d, ids, k) in dcases.items():
-        compare_dedup(what, d, ids, k)
-        log(f"edges  dedup_topk  {what}: ok, equal")
+    for case in rt.L2_CASES:
+        arrays, k, dtype, exact = rt.l2_case(case, width="main")
+        q_pad, qbuf, cands, ids = (torch.from_numpy(a).to(dev) for a in arrays)
+        tdt = getattr(torch, dtype)
+        err = compare_l2(case, q_pad.to(tdt), qbuf, cands.to(tdt), ids, k, exact_ids=exact)
+        log(f"edges  l2_topk_qbuf  {case}: ok{', ids equal' if exact else ''} "
+            f"(max abs err {err:.3g})")
+    for case in rt.DEDUP_CASES:
+        arrays, k = rt.dedup_case(case, width="main")
+        compare_dedup(case, *(torch.from_numpy(a).to(dev) for a in arrays), k)
+        log(f"edges  dedup_topk  {case}: ok, equal")
 
 
 # ---------------------------------------------------------------- timing
@@ -207,7 +119,9 @@ def l2_bound(q_pad, qbuf, cands, cand_ids, k):
     plane, qbuf, and the ids and valid vectors of every partition that has an
     occupied slot), each output written once; 2·d flops per (occupied slot,
     valid candidate)."""
-    occ = occupied(qbuf, q_pad.shape[0]).sum(1).double()
+    from repro_torch import testing as rt
+
+    occ = rt.occupied(q_pad, qbuf).sum(1).double()
     valid = (cand_ids >= 0).sum(1).double()
     item = cands.element_size()
     d = cands.shape[2]
@@ -262,6 +176,7 @@ def main(n_base: int = N_BASE, n_queries: int = N_QUERIES) -> int:
         return 1
     import numpy as np
 
+    from repro_torch import testing as rt
     from repro_torch.core import ground_truth as gt
     from repro_torch.core.metrics import recall_at_k
     from repro_torch.data.synthetic import make_vector_dataset
@@ -336,7 +251,7 @@ def main(n_base: int = N_BASE, n_queries: int = N_QUERIES) -> int:
         f"{BATCH / float(np.median(batch_s)):.1f} QPS at the median batch "
         f"({1e3 * float(np.median(batch_s)):.1f} ms; first {1e3 * batch_s[0]:.1f} ms)")
     log(f"main   mean nprobe_eff {float(np.concatenate(nprobe).mean()):.3f} | overflow {overflow} "
-        f"| launches {launches}")
+        f"| launches over {len(batch_s)} batches {launches}")
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"{name} was not launched on the main path")
@@ -356,12 +271,9 @@ def main(n_base: int = N_BASE, n_queries: int = N_QUERIES) -> int:
 
     q0 = ds.queries[:BATCH]
     r_cuda, r_ref = eng.search(q0, impl="cuda"), eng.search(q0, impl="ref")
-    qn = float((torch.as_tensor(q0) ** 2).sum(-1).max())
-    vn = (eng.store["vectors"].float() ** 2).sum(-1)
-    atol = 1e-5 * (qn + float(vn[eng.store["ids"] >= 0].max()))
-    err = check_topk("main batch cuda vs ref", torch.as_tensor(r_cuda.dists),
-                     torch.as_tensor(r_cuda.ids), torch.as_tensor(r_ref.dists),
-                     torch.as_tensor(r_ref.ids), atol)
+    atol = rt.l2_atol(q0, eng.store["vectors"], eng.store["ids"])
+    err = rt.assert_topk_match(r_cuda.dists, r_cuda.ids, r_ref.dists, r_ref.ids, atol,
+                               what="main batch cuda vs ref")
     if not (np.array_equal(r_cuda.nprobe_eff, r_ref.nprobe_eff)
             and r_cuda.overflow == r_ref.overflow
             and r_cuda.stats.dedup_hits == r_ref.stats.dedup_hits):
@@ -381,18 +293,18 @@ def main(n_base: int = N_BASE, n_queries: int = N_QUERIES) -> int:
                     "source": "src/repro_torch/csrc/l2_topk_qbuf.cu",
                     "replaces": "src/repro/kernels/l2_topk.py:247",
                     "launches": launches["l2_topk_qbuf"], "max_abs_err": err,
-                    "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                     "bound_by": bound_by, "library_ms": None,
                     "shapes": {"q_pad": list(qp.shape), "qbuf": list(qb.shape),
                                "cands": list(vec.shape), "k": k,
-                               "occupied_slots": int(occupied(qb, qp.shape[0]).sum())}})
+                               "occupied_slots": int(rt.occupied(qp, qb).sum())}})
     # one block scans one bucket: the heaviest bucket's share of the work
     # bounds what the other 131 SMs can hide
-    work = occupied(qb, qp.shape[0]).sum(1).double() * (ids >= 0).sum(1).double()
+    work = rt.occupied(qp, qb).sum(1).double() * (ids >= 0).sum(1).double()
     log(f"kernel l2_topk_qbuf per-bucket work (occupied slots x valid candidates): "
         f"max {int(work.max())}, mean {float(work.mean()):.0f}, heaviest bucket "
         f"{100 * float(work.max() / work.sum()):.2f}% of the total; max occupied slots "
-        f"{int(occupied(qb, qp.shape[0]).sum(1).max())}, max valid candidates "
+        f"{int(rt.occupied(qp, qb).sum(1).max())}, max valid candidates "
         f"{int((ids >= 0).sum(1).max())}")
     (pd, pi, k), _ = captured["dedup_topk"]
     err = compare_dedup("dedup_topk main-path inputs", pd, pi, k)
@@ -403,7 +315,7 @@ def main(n_base: int = N_BASE, n_queries: int = N_QUERIES) -> int:
                     "source": "src/repro_torch/csrc/dedup_topk.cu",
                     "replaces": "src/repro/kernels/dedup_topk.py:137",
                     "launches": launches["dedup_topk"], "max_abs_err": err,
-                    "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                     "bound_by": bound_by, "library_ms": None,
                     "shapes": {"pool": list(pd.shape), "k": k,
                                "valid": int(((pi >= 0) & torch.isfinite(pd)).sum())}})

@@ -6,6 +6,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.utils.device import input_device
+
 
 def _smallest_k_sorted(d2: torch.Tensor, k: int):
     """k smallest per row, ascending; equal distances in index order (the
@@ -22,13 +24,13 @@ def exact_knn(queries, base, k: int, *, batch: int = 1024,
     """Exact kNN of ``queries`` in ``base``: (dists [Q,k], ids [Q,k]) as numpy.
 
     Inputs are arrays or tensors; the work runs on ``device`` (default: the
-    device of ``base`` when it is a tensor, else the CPU). If exclude_self,
+    device of ``base`` or ``queries`` when one is a tensor, else the card,
+    raising when there is none). If exclude_self,
     asks for k+1 and drops exact self-matches (training labels where queries
     ⊆ base): per row, the first k columns whose distance is > 1e-9, or
     columns 1..k when fewer than k qualify — the reference's choice.
     """
-    if device is None:
-        device = base.device if isinstance(base, torch.Tensor) else "cpu"
+    device = input_device(device, base, queries)
     kk = k + 1 if exclude_self else k
     q = torch.as_tensor(queries, dtype=torch.float32, device=device)
     b = torch.as_tensor(base, dtype=torch.float32, device=device)

@@ -11,6 +11,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.utils.device import input_device
+
 PAD_ID = -1
 
 
@@ -31,7 +33,8 @@ class PartitionStore(NamedTuple):
 
 def build_store(x, ids, assign, centroids, *, capacity: Optional[int] = None,
                 extra=None, device=None) -> PartitionStore:
-    """Build padded lists on ``device`` (default: x's device, else the CPU).
+    """Build padded lists on ``device`` (default: x's device when it is a
+    tensor, else the card, raising when there is none).
 
     ``extra`` = (vectors, ids, assign) replica rows appended by the
     redundancy strategy (paper §3.3); replicas share the id of the original
@@ -40,8 +43,7 @@ def build_store(x, ids, assign, centroids, *, capacity: Optional[int] = None,
     and each partition keeps its first ``capacity`` rows — the reference's
     per-row loop, vectorized.
     """
-    if device is None:
-        device = x.device if isinstance(x, torch.Tensor) else "cpu"
+    device = input_device(device, x)
 
     def t(a, dtype):
         return torch.as_tensor(a, device=device).to(dtype)

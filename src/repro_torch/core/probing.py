@@ -15,6 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.utils.device import resolve_device
+
 
 class ProbingConfig(NamedTuple):
     dim: int                # query vector dim d
@@ -40,11 +42,15 @@ def _mlp_apply(layers: nn.ModuleList, x: torch.Tensor, *, final_act: bool = True
 class ProbingModel(nn.Module):
     """φ_q, φ_I and φ_p as ``nn.Linear`` stacks. Weights are He-normal
     (std sqrt(2/fan_in)) from ``generator``, biases zero — the reference's
-    init, though not its random numbers."""
+    init, though not its random numbers. It lives on ``device`` (default: the
+    generator's device, else the card, raising when there is none)."""
 
     def __init__(self, cfg: ProbingConfig, *, generator: torch.Generator | None = None,
                  device=None):
         super().__init__()
+        if device is None and generator is not None:
+            device = generator.device
+        device = resolve_device(device)
         self.cfg = cfg
         p_in = cfg.q_hidden[-1] + cfg.i_hidden[-1]
         self.phi_q = _mlp((cfg.dim, *cfg.q_hidden), device)
@@ -92,8 +98,9 @@ def bce_loss(model: ProbingModel, q, cent_dist, labels, *, pos_weight: float = 1
 
 def params_from_jax(tree, device=None) -> ProbingModel:
     """A ProbingModel carrying the JAX parameters ``{"phi_q", "phi_i",
-    "phi_p": [{"w": [in, out], "b": [out]}, ...]}`` (numpy leaves). The
-    widths are read off the shapes."""
+    "phi_p": [{"w": [in, out], "b": [out]}, ...]}`` (numpy leaves), on
+    ``device`` (default the card, raising when there is none). The widths
+    are read off the shapes."""
     def widths(layers):
         return tuple(int(np.shape(layer["w"])[1]) for layer in layers)
 

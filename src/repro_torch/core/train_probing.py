@@ -16,6 +16,7 @@ import torch
 from repro_torch.core import probing
 from repro_torch.core.kmeans import centroid_distances
 from repro_torch.train import optimizer as opt
+from repro_torch.utils.device import input_device
 
 
 class TrainLog(NamedTuple):
@@ -46,9 +47,9 @@ def train_probing_model(x_train, labels, centroids, *, epochs: int = 10,
     ``model`` is trained in place when given (tests pass the reference's
     initial parameters through ``probing.params_from_jax``); otherwise a new
     one is drawn from ``generator``. Everything runs on ``device`` (default:
-    x_train's device when it is a tensor, else the CPU)."""
-    if device is None:
-        device = x_train.device if isinstance(x_train, torch.Tensor) else "cpu"
+    the device of x_train when it is a tensor, else of ``model``, else the
+    card, raising when there is none)."""
+    device = input_device(device, x_train, *(model.parameters() if model is not None else ()))
     x = torch.as_tensor(x_train, dtype=torch.float32, device=device)
     lab = torch.as_tensor(labels, dtype=torch.float32, device=device)
     cents = torch.as_tensor(centroids, dtype=torch.float32, device=device)

@@ -196,17 +196,18 @@ class LiraEngine:
         """An engine from a JAX ``LiraEngine.save`` directory (f32 tier): the
         config from the manifest's ``extra.config``, the probing parameters
         and the store from the leaf files, each leaf checked against the
-        manifest. bfloat16 stores were saved upcast to f32 and are cast back."""
+        manifest. bfloat16 stores were saved upcast to f32 and are cast back.
+        The saved kernel backend is not carried over: the engine serves with
+        the device's default (the kernels on the card)."""
         dev = resolve_device(device)
         step_dir, meta = checkpoint.read_manifest(directory, step)
         fields = {f.name for f in dataclasses.fields(LiraSystemConfig)}
         raw = {key: tuple(val) if isinstance(val, list) else val
                for key, val in meta["extra"]["config"].items() if key in fields}
-        cfg = LiraSystemConfig(**raw)
+        # the saved kernel backend was the reference's choice (ref, pallas,
+        # interpret); here only the caller's impl= picks the plain version
+        cfg = LiraSystemConfig(**{**raw, "impl": "auto"})
         tiers.resolve(cfg.tier)
-        if cfg.impl not in ("auto", *kops.IMPLS):
-            # the reference's own backends (pallas, interpret) mean nothing here
-            cfg = dataclasses.replace(cfg, impl="auto")
         names = _jax_leaf_names(cfg)
         if meta["n_leaves"] != len(names):
             raise ValueError(f"checkpoint has {meta['n_leaves']} leaves; an f32-tier "

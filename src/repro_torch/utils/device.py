@@ -19,3 +19,12 @@ def resolve_device(device=None) -> torch.device:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+def input_device(device, *inputs) -> torch.device:
+    """Where an entry point runs: ``device`` when given, else the device of
+    the first tensor among ``inputs`` (the caller placed it), else the card
+    as ``resolve_device(None)`` picks it — never the CPU by default."""
+    if device is None:
+        device = next((t.device for t in inputs if isinstance(t, torch.Tensor)), None)
+    return resolve_device(device)

@@ -74,7 +74,7 @@ def test_synthetic_dataset_is_the_reference_copy():
 def test_probing_logits_and_mask_match(data, jax_params, sigma):
     _, q, _, cents = data
     cd = np.array(jkm.centroid_distances(jnp.asarray(q), jnp.asarray(cents)))
-    model = tprobing.params_from_jax(jax_params)
+    model = tprobing.params_from_jax(jax_params, device="cpu")
     qt, cdt = torch.from_numpy(q), torch.from_numpy(cd)
     with torch.no_grad():
         np.testing.assert_allclose(tkm.centroid_distances(qt, torch.from_numpy(cents)).numpy(),
@@ -95,7 +95,7 @@ def test_bce_loss_and_gradient_match(data, jax_params):
     cd = np.array(jkm.centroid_distances(jnp.asarray(q), jnp.asarray(cents)))
     labels = (np.random.default_rng(3).random((len(q), 8)) < 0.3).astype(np.float32)
     jl, jg = jax.value_and_grad(jprobing.bce_loss)(jax_params, q, cd, labels, pos_weight=2.0)
-    model = tprobing.params_from_jax(jax_params)
+    model = tprobing.params_from_jax(jax_params, device="cpu")
     tl = tprobing.bce_loss(model, torch.from_numpy(q), torch.from_numpy(cd),
                            torch.from_numpy(labels), pos_weight=2.0)
     tl.backward()
@@ -161,7 +161,7 @@ def test_plus_plus_init_picks_data_points(data):
 def test_exact_knn_matches(data):
     x, q, _, _ = data
     jd, ji = jgt.exact_knn(q, x, 10, batch=32)
-    td, ti = tgt.exact_knn(q, x, 10, batch=32)
+    td, ti = tgt.exact_knn(q, x, 10, batch=32, device="cpu")
     np.testing.assert_array_equal(ti, ji)
     np.testing.assert_allclose(td, jd, rtol=1e-5, atol=1e-3)
 
@@ -179,7 +179,7 @@ def test_exclude_self_column_choice_matches(data, degenerate):
     td, ti = tgt.drop_self(kd, ki, 10)
     np.testing.assert_array_equal(ti, ji)
     np.testing.assert_array_equal(td, jd)
-    fd, fi = tgt.exact_knn(x, x, 10, exclude_self=True)
+    fd, fi = tgt.exact_knn(x, x, 10, exclude_self=True, device="cpu")
     assert fi.shape == (len(x), 10) and fd.dtype == np.float32
 
 
@@ -191,7 +191,8 @@ def test_build_store_matches(data, capacity):
     picked = rng.choice(len(x), 40, replace=False)
     extra = (x[picked], ids[picked], ((assign[picked] + 1) % 8).astype(np.int32))
     js = jax_build_store(x, ids, assign, cents, capacity=capacity, extra=extra)
-    ts = torch_build_store(x, ids, assign, cents, capacity=capacity, extra=extra)
+    ts = torch_build_store(x, ids, assign, cents, capacity=capacity, extra=extra,
+                           device="cpu")
     assert ts.capacity == js.capacity
     np.testing.assert_array_equal(ts.vectors.numpy(), np.asarray(js.vectors))
     np.testing.assert_array_equal(ts.ids.numpy(), np.asarray(js.ids))
@@ -203,7 +204,7 @@ def test_build_store_matches(data, capacity):
 def test_plan_redundancy_matches(data, jax_params, eta):
     x, _, assign, cents = data
     jp = jax_plan_redundancy(jax_params, x, assign, cents, eta=eta, batch=256)
-    model = tprobing.params_from_jax(jax_params)
+    model = tprobing.params_from_jax(jax_params, device="cpu")
     tp = torch_plan_redundancy(model, x, assign, cents, eta=eta, batch=256)
     np.testing.assert_array_equal(tp.pred_nprobe, jp.pred_nprobe)
     np.testing.assert_array_equal(tp.picked, jp.picked)
@@ -228,7 +229,7 @@ def test_train_probing_from_same_init_matches(data, jax_params):
                                                         q_hidden=(32, 16), i_hidden=(16,),
                                                         p_hidden=(32,))))
     model, tlog = torch_train_probing_model(x, lab, cents, epochs=2, batch=128, eval_every=3,
-                                            model=tprobing.params_from_jax(init))
+                                            model=tprobing.params_from_jax(init, device="cpu"))
     np.testing.assert_allclose(tlog.losses, jlog.losses, rtol=1e-4)
     np.testing.assert_allclose(tlog.recalls, jlog.recalls, atol=1e-6)
     jparams = np_tree(jparams)
@@ -259,7 +260,7 @@ def test_end_to_end_build_recall_close_to_jax(small_dataset, monkeypatch):
     monkeypatch.setattr(tengine, "kmeans_fit", lambda x, n_clusters, n_iters, generator:
                         tkm.lloyd(x, torch.from_numpy(init_cents), n_iters))
     monkeypatch.setattr(tengine, "train_probing_model", lambda *a, **k: torch_train_probing_model(
-        *a, **{**k, "model": tprobing.params_from_jax(init_params)}))
+        *a, **{**k, "model": tprobing.params_from_jax(init_params, device="cpu")}))
     jeng = JaxEngine.build(make_test_mesh(), ds.base, JaxBuildConfig(**kw))
     teng = tengine.LiraEngine.build(ds.base, BuildConfig(**kw), device="cpu")
     _, gti = jgt.exact_knn(ds.queries, ds.base, 10)

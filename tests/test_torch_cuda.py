@@ -1,108 +1,20 @@
 """The CUDA kernels against their plain PyTorch versions, on the card. This
 file imports no jax, so it runs on a machine with a card and without the JAX
 package: ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
-Without a card (or nvcc) its ``cuda`` tests skip; the input generators and the
-comparison are shared with ``test_torch_kernels.py``, which holds the plain
-versions against the JAX reference on the same inputs.
-
-Tolerances: distances rtol 1e-5, atol 1e-5·max(‖q‖²+‖c‖²) — the L2
-expansion loses precision in proportion to the norms, not to the distance.
-Ids are set-equal per row except among candidates tied within that tolerance
-at the k-th place; where the inputs are small integers the distances are
-exact and the ids must match element for element (lowest index wins a tie).
-The merge does no arithmetic, so its outputs must be equal.
+Without a card (or nvcc) its ``cuda`` tests skip. The edge cases and the
+comparison (with its tolerances) are ``repro_torch.testing``'s, which
+``test_torch_kernels.py`` and ``chip_smoke.py`` share.
 """
 import os
 import shutil
 
-import numpy as np
 import pytest
 import torch
 
+from repro_torch import testing as rt
 from repro_torch.kernels import dedup_topk as dd_mod
 from repro_torch.kernels import l2_topk as l2_mod
 from repro_torch.kernels import ref as tref
-
-RTOL = 1e-5
-
-
-def assert_topk_match(d_a, i_a, d_b, i_b, atol, *, exact_ids=False):
-    d_a, d_b = np.asarray(d_a, np.float32), np.asarray(d_b, np.float32)
-    i_a, i_b = np.asarray(i_a), np.asarray(i_b)
-    k = d_a.shape[-1]
-    d_a, d_b, i_a, i_b = (a.reshape(-1, k) for a in (d_a, d_b, i_a, i_b))
-    np.testing.assert_allclose(d_a, d_b, rtol=RTOL, atol=atol)
-    if exact_ids:
-        np.testing.assert_array_equal(i_a, i_b)
-        return
-    fin = np.isfinite(d_b)
-    np.testing.assert_array_equal(i_a[~fin], i_b[~fin])
-    for r in range(len(d_a)):
-        diff = set(i_a[r].tolist()) ^ set(i_b[r].tolist())
-        if not diff:
-            continue
-        kth = d_b[r][fin[r]].max()
-        dist = dict(zip(i_b[r].tolist(), d_b[r].tolist()))
-        dist.update(zip(i_a[r].tolist(), d_a[r].tolist()))
-        tol = atol + RTOL * abs(kth)
-        assert all(dist[i] >= kth - tol for i in diff), (r, sorted(diff))
-
-
-def l2_inputs(seed, *, b=4, s=12, c=60, d=16, n_rows=20, empty_frac=0.3,
-              hole_frac=0.15, pad_tail=10, integer=False):
-    rng = np.random.default_rng(seed)
-    if integer:
-        cands = rng.integers(-3, 4, (b, c, d)).astype(np.float32)
-        cands[:, 1::2] = cands[:, ::2][:, :c // 2]   # duplicate rows → exact ties
-        q = rng.integers(-3, 4, (n_rows, d)).astype(np.float32)
-    else:
-        cands = (rng.normal(size=(b, c, d)) * 3).astype(np.float32)
-        q = (rng.normal(size=(n_rows, d)) * 3).astype(np.float32)
-    q_pad = np.concatenate([q, np.full((1, d), 1e9, np.float32)])
-    ids = rng.permutation(b * c).reshape(b, c).astype(np.int32)
-    ids[rng.random((b, c)) < hole_frac] = -1
-    if pad_tail:
-        ids[:, -pad_tail:] = -1
-    qbuf = rng.integers(0, n_rows, (b, s)).astype(np.int32)
-    qbuf[rng.random((b, s)) < empty_frac] = n_rows
-    return q_pad, qbuf, cands, ids
-
-
-def l2_atol(q_pad, qbuf, cands, ids):
-    rows = qbuf[qbuf < len(q_pad) - 1]
-    qn = (q_pad[rows].astype(np.float64) ** 2).sum(-1).max() if rows.size else 0.0
-    cn = (cands.astype(np.float64) ** 2).sum(-1)[ids >= 0]
-    return 1e-5 * max(qn + (cn.max() if cn.size else 0.0), 1.0)
-
-
-L2_CASES = {
-    "holes+padding": dict(),
-    "k>C": dict(c=6, pad_tail=2, k=9),
-    "empty-slot rows": dict(empty_frac=0.8),
-    "all ids padding": dict(hole_frac=1.0),
-    "bf16 store": dict(dtype="bfloat16"),
-    "exact ties": dict(integer=True, hole_frac=0.0, pad_tail=0),
-}
-
-
-def dedup_inputs(seed, *, q=6, p=64, n_ids=20, integer=False, nonfinite=True):
-    rng = np.random.default_rng(seed)
-    d = (rng.integers(0, 6, (q, p)) if integer else rng.random((q, p)) * 10).astype(np.float32)
-    ids = rng.integers(0, n_ids, (q, p)).astype(np.int32)
-    ids[rng.random((q, p)) < 0.2] = -1
-    if nonfinite:
-        d[rng.random((q, p)) < 0.1] = np.inf
-        d[rng.random((q, p)) < 0.05] = np.nan
-        d[rng.random((q, p)) < 0.05] = -np.inf
-    return d, ids
-
-
-DEDUP_CASES = {
-    "duplicates+padding+non-finite": dict(),
-    "exact ties": dict(integer=True, n_ids=40),
-    "k>P": dict(p=5, k=9),
-    "no duplicates": dict(n_ids=10_000, nonfinite=False),
-}
 
 
 @pytest.fixture
@@ -115,13 +27,10 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", list(L2_CASES))
+@pytest.mark.parametrize("case", rt.L2_CASES)
 def test_l2_topk_qbuf_kernel_matches_plain(cuda_device, case):
-    kw = dict(L2_CASES[case])
-    k = kw.pop("k", 7)
-    tdt = getattr(torch, kw.pop("dtype", "float32"))
-    arrays = l2_inputs(6, **kw)
-    atol = l2_atol(*arrays)
+    arrays, k, dtype, exact = rt.l2_case(case, seed=6)
+    tdt = getattr(torch, dtype)
     q_pad, qbuf, cands, ids = (torch.from_numpy(a).to(cuda_device) for a in arrays)
     q_pad, cands = q_pad.to(tdt), cands.to(tdt)
     before = l2_mod.launches
@@ -129,19 +38,17 @@ def test_l2_topk_qbuf_kernel_matches_plain(cuda_device, case):
     torch.cuda.synchronize()
     assert l2_mod.launches == before + 1
     pd, pi = tref.l2_topk_qbuf_ref(q_pad, qbuf, cands, ids, k)
-    occ = (qbuf < q_pad.shape[0] - 1).cpu().numpy()
-    kd, ki, pd, pi = (t.cpu().numpy() for t in (kd, ki, pd, pi))
-    assert np.isinf(kd[~occ]).all() and (ki[~occ] == -1).all()
-    assert_topk_match(kd[occ], ki[occ], pd[occ], pi[occ], atol,
-                      exact_ids=kw.get("integer", False))
+    occ = rt.occupied(q_pad, qbuf)
+    assert bool(torch.isinf(kd[~occ]).all()) and bool((ki[~occ] == -1).all())
+    rt.assert_topk_match(kd[occ], ki[occ], pd[occ], pi[occ],
+                         rt.qbuf_atol(q_pad, qbuf, cands, ids), exact_ids=exact)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", list(DEDUP_CASES))
+@pytest.mark.parametrize("case", rt.DEDUP_CASES)
 def test_dedup_topk_kernel_matches_plain(cuda_device, case):
-    kw = dict(DEDUP_CASES[case])
-    k = kw.pop("k", 8)
-    d, ids = (torch.from_numpy(a).to(cuda_device) for a in dedup_inputs(7, **kw))
+    arrays, k = rt.dedup_case(case, seed=7)
+    d, ids = (torch.from_numpy(a).to(cuda_device) for a in arrays)
     before = dd_mod.launches
     kd, ki = dd_mod.dedup_topk(d, ids, k)
     torch.cuda.synchronize()
@@ -152,14 +59,15 @@ def test_dedup_topk_kernel_matches_plain(cuda_device, case):
 
 @pytest.mark.cuda
 def test_kernel_wrappers_reject_what_they_do_not_take(cuda_device):
-    q_pad, qbuf, cands, ids = (torch.from_numpy(a).to(cuda_device) for a in l2_inputs(8))
+    arrays, _, _, _ = rt.l2_case("holes+padding", seed=8)
+    q_pad, qbuf, cands, ids = (torch.from_numpy(a).to(cuda_device) for a in arrays)
     with pytest.raises(TypeError):
         l2_mod.l2_topk_qbuf(q_pad.double(), qbuf, cands.double(), ids, 5)
     with pytest.raises(TypeError):
         l2_mod.l2_topk_qbuf(q_pad, qbuf.long(), cands, ids, 5)
     with pytest.raises(ValueError):
         l2_mod.l2_topk_qbuf(q_pad[:, :3], qbuf, cands, ids, 5)
-    d, i = (torch.from_numpy(a).to(cuda_device) for a in dedup_inputs(9))
+    d, i = (torch.from_numpy(a).to(cuda_device) for a in rt.dedup_case("exact ties", seed=9)[0])
     with pytest.raises(TypeError):
         dd_mod.dedup_topk(d.double(), i, 5)
     with pytest.raises(ValueError):

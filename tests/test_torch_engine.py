@@ -4,9 +4,11 @@ queries with ``impl="ref"``.
 
 Across σ ∈ {0.3, 0.5, 0.9} × η ∈ {0, 0.03} × {float32, bfloat16} stores at an
 odd batch (37 queries, bucket 64), plus a forced q_cap overflow:
-distances allclose (rtol 1e-5, atol 1e-5·max(‖q‖²+‖c‖²)), ids set-equal per
-row except among candidates tied within that tolerance at the k-th place,
-and ``nprobe_eff``, ``overflow`` and ``dedup_hits`` equal.
+distances and ids under ``repro_torch.testing``'s rule (rtol 1e-5, atol
+1e-5·max(‖q‖²+‖c‖²); ids set-equal per row except among candidates tied
+within that tolerance at the k-th place), and ``nprobe_eff``, ``overflow``
+and ``dedup_hits`` equal. Also what ``load_jax`` carries over (config,
+parameters, store) and what it does not (the saved kernel backend).
 """
 import dataclasses
 
@@ -18,10 +20,11 @@ from repro.data import make_vector_dataset
 from repro.launch.mesh import make_test_mesh
 from repro.serving.api import BuildConfig as JaxBuildConfig
 from repro.serving.engine import LiraEngine as JaxEngine
+from repro_torch import testing as rt
+from repro_torch.kernels import ops as kops
 from repro_torch.serving.api import SearchRequest
 from repro_torch.serving.engine import LiraEngine
 
-RTOL = 1e-5
 ENGINES = {"eta0": dict(eta=0.0), "eta0.03": dict(eta=0.03),
            "bf16": dict(eta=0.03, store_dtype="bfloat16")}
 
@@ -49,24 +52,12 @@ def assert_same_answer(jr, tr, atol):
     np.testing.assert_array_equal(tr.nprobe_eff, np.asarray(jr.nprobe_eff))
     assert tr.overflow == jr.overflow
     assert tr.stats.dedup_hits == jr.stats.dedup_hits
-    jd, ji = np.asarray(jr.dists), np.asarray(jr.ids)
-    assert tr.dists.shape == jd.shape and tr.ids.dtype == np.int32
-    np.testing.assert_allclose(tr.dists, jd, rtol=RTOL, atol=atol)
-    fin = np.isfinite(jd)
-    np.testing.assert_array_equal(tr.ids[~fin], ji[~fin])
-    for r in range(len(jd)):
-        diff = set(tr.ids[r].tolist()) ^ set(ji[r].tolist())
-        if diff:
-            kth = jd[r][fin[r]].max()
-            dist = dict(zip(ji[r].tolist(), jd[r].tolist()))
-            dist.update(zip(tr.ids[r].tolist(), tr.dists[r].tolist()))
-            assert all(dist[i] >= kth - (atol + RTOL * abs(kth)) for i in diff), (r, diff)
+    assert tr.dists.shape == np.shape(jr.dists) and tr.ids.dtype == np.int32
+    rt.assert_topk_match(tr.dists, tr.ids, jr.dists, jr.ids, atol)
 
 
 def atol_for(eng, q):
-    v = eng.store["vectors"].float()
-    cn = float((v * v).sum(-1)[eng.store["ids"] >= 0].max())
-    return 1e-5 * (float((q.astype(np.float64) ** 2).sum(-1).max()) + cn)
+    return rt.l2_atol(q, eng.store["vectors"], eng.store["ids"])
 
 
 def test_load_jax_carries_config_params_and_store(engines):
@@ -80,6 +71,15 @@ def test_load_jax_carries_config_params_and_store(engines):
                                   np.asarray(jeng.store["vectors"]).astype(np.float32))
     w = np.asarray(jeng.params["phi_p"][-1]["w"])
     np.testing.assert_array_equal(teng.model.phi_p[-1].weight.detach().numpy().T, w)
+
+
+def test_load_jax_does_not_take_the_saved_kernel_backend(engines, dataset):
+    """Saved with impl="ref", the engine still serves through the kernels on
+    the card; only the caller's impl= picks the plain version there."""
+    jeng, teng = engines["eta0"]
+    assert jeng.cfg.impl == "ref" and teng.cfg.impl == "auto"
+    assert kops.resolve_impl(teng.cfg.impl, torch.device("cuda")) == "cuda"
+    assert teng.search(dataset.queries[:5]).stats.impl == "ref"   # plain on the CPU
 
 
 @pytest.mark.parametrize("sigma", [0.3, 0.5, 0.9])

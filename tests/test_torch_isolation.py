@@ -1,6 +1,6 @@
 """The port stands alone: no module under ``src/repro_torch/`` imports jax or
 the JAX package, importing it leaves jax unloaded, and its entry points
-refuse to run on the CPU unless asked to."""
+refuse to run on the CPU unless asked to (or handed CPU tensors)."""
 import ast
 import os
 import pathlib
@@ -52,3 +52,43 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         LiraEngine.load_jax("/nonexistent")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def _entry_points():
+    from repro_torch.core import ground_truth as gt
+    from repro_torch.core import probing
+    from repro_torch.core.partitions import build_store
+    from repro_torch.core.train_probing import train_probing_model
+
+    x = np.random.default_rng(1).normal(size=(32, 8)).astype(np.float32)
+    ids, assign = np.arange(32, dtype=np.int32), np.arange(32, dtype=np.int32) % 4
+    tree = {"phi_q": [{"w": np.zeros((8, 16), np.float32), "b": np.zeros(16, np.float32)}],
+            "phi_i": [{"w": np.zeros((4, 8), np.float32), "b": np.zeros(8, np.float32)}],
+            "phi_p": [{"w": np.zeros((24, 4), np.float32), "b": np.zeros(4, np.float32)}]}
+    return x, {
+        "exact_knn": lambda x: gt.exact_knn(x[:4], x, 3),
+        "build_store": lambda x: build_store(x, ids, assign, x[:4]),
+        "train_probing_model": lambda x: train_probing_model(
+            x, np.zeros((32, 4), np.float32), x[:4], epochs=1, batch=16),
+        "params_from_jax": lambda x: probing.params_from_jax(tree),
+        "ProbingModel": lambda x: probing.ProbingModel(probing.ProbingConfig(dim=8, n_partitions=4)),
+    }
+
+
+@pytest.mark.parametrize("entry", ["exact_knn", "build_store", "train_probing_model",
+                                   "params_from_jax", "ProbingModel"])
+def test_entry_point_on_arrays_without_device_raises_without_cuda(monkeypatch, entry):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x, entry_points = _entry_points()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        entry_points[entry](x)
+
+
+def test_entry_points_follow_the_tensors_they_are_given(monkeypatch):
+    """CPU tensors are the caller's choice of device: no card is needed."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x, entry_points = _entry_points()
+    d, i = entry_points["exact_knn"](torch.from_numpy(x))
+    assert d.shape == i.shape == (4, 3) and (i[:, 0] == np.arange(4)).all()
+    store = entry_points["build_store"](torch.from_numpy(x))
+    assert store.vectors.device.type == "cpu" and int(store.counts.sum()) == 32

@@ -1,15 +1,9 @@
 """The port's kernel modules against the JAX reference: the plain PyTorch
 versions of ``l2_topk_qbuf`` and ``dedup_topk`` vs ``repro.kernels.ops`` with
-``impl="ref"`` (and vs the numpy ``dedup_topk_np``) on the same numpy inputs;
-the CUDA kernels are held against the same plain versions on the card in
-``test_torch_cuda.py``, which shares these inputs.
-
-Tolerances: distances rtol 1e-5, atol 1e-5·max(‖q‖²+‖c‖²) — the L2
-expansion loses precision in proportion to the norms, not to the distance.
-Ids are set-equal per row except among candidates tied within that tolerance
-at the k-th place; where the inputs are small integers the distances are
-exact and the ids must match element for element (lowest index wins a tie).
-The merge does no arithmetic, so its outputs must be equal.
+``impl="ref"`` (and vs the numpy ``dedup_topk_np``) on the same numpy inputs.
+The edge cases and the comparison, with its tolerances, are
+``repro_torch.testing``'s; ``test_torch_cuda.py`` holds the CUDA kernels
+against the same plain versions on the card with the same cases.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -18,20 +12,16 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels.dedup_topk import dedup_topk_np as jax_dedup_topk_np
+from repro_torch import testing as rt
 from repro_torch.kernels import dedup_topk as dd_mod
 from repro_torch.kernels import l2_topk as l2_mod
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
-from test_torch_cuda import (DEDUP_CASES, L2_CASES, RTOL, assert_topk_match, dedup_inputs,
-                             l2_atol, l2_inputs)
 
 
-@pytest.mark.parametrize("case", list(L2_CASES))
+@pytest.mark.parametrize("case", rt.L2_CASES)
 def test_l2_topk_qbuf_plain_matches_jax_ref(case):
-    kw = dict(L2_CASES[case])
-    k = kw.pop("k", 7)
-    dtype = kw.pop("dtype", "float32")
-    q_pad, qbuf, cands, ids = l2_inputs(1, **kw)
+    (q_pad, qbuf, cands, ids), k, dtype, exact = rt.l2_case(case, seed=1)
     jd, ji = jops.l2_topk_qbuf(jnp.asarray(q_pad, dtype), jnp.asarray(qbuf),
                                jnp.asarray(cands, dtype), jnp.asarray(ids), k, impl="ref")
     tdt = getattr(torch, dtype)
@@ -40,35 +30,33 @@ def test_l2_topk_qbuf_plain_matches_jax_ref(case):
                                impl="ref")
     assert td.shape == ti.shape == (qbuf.shape[0], qbuf.shape[1], k)
     assert td.dtype == torch.float32 and ti.dtype == torch.int32
-    occ = qbuf < len(q_pad) - 1
+    occ = rt.occupied(q_pad, qbuf)
     jd, ji = np.asarray(jd, np.float32), np.asarray(ji)
-    assert_topk_match(td.numpy()[occ], ti.numpy()[occ], jd[occ], ji[occ],
-                      l2_atol(q_pad, qbuf, cands, ids), exact_ids=kw.get("integer", False))
+    rt.assert_topk_match(td.numpy()[occ], ti.numpy()[occ], jd[occ], ji[occ],
+                         rt.qbuf_atol(q_pad, qbuf, cands, ids), exact_ids=exact)
     # the sentinel rows are garbage by contract, but finite garbage on both sides
-    np.testing.assert_allclose(td.numpy()[~occ], jd[~occ], rtol=RTOL)
+    np.testing.assert_allclose(td.numpy()[~occ], jd[~occ], rtol=rt.RTOL)
 
 
 def test_l2_topk_flat_and_batched_plain_match_jax_ref():
-    q_pad, qbuf, cands, ids = l2_inputs(2)
-    q = q_pad[:8]
-    jd, ji = jops.l2_topk(jnp.asarray(q), jnp.asarray(cands[0]), jnp.asarray(ids[0]), 5,
+    (q_pad, qbuf, cands, ids), _, _, _ = rt.l2_case("holes+padding", seed=2)
+    q = q_pad[:8]  # bucket 0 holds no valid candidate: take bucket 1
+    jd, ji = jops.l2_topk(jnp.asarray(q), jnp.asarray(cands[1]), jnp.asarray(ids[1]), 5,
                           impl="ref")
-    td, ti = tref.l2_topk_ref(torch.from_numpy(q), torch.from_numpy(cands[0]),
-                              torch.from_numpy(ids[0]), 5)
-    assert_topk_match(td, ti, jd, ji, 1e-3)
+    td, ti = tref.l2_topk_ref(torch.from_numpy(q), torch.from_numpy(cands[1]),
+                              torch.from_numpy(ids[1]), 5)
+    rt.assert_topk_match(td, ti, jd, ji, 1e-3)
     qb = np.stack([q, q[::-1]] * 2)
     jd, ji = jops.l2_topk_batched(jnp.asarray(qb), jnp.asarray(cands), jnp.asarray(ids), 5,
                                   impl="ref")
     td, ti = tref.l2_topk_batched_ref(torch.from_numpy(qb), torch.from_numpy(cands),
                                       torch.from_numpy(ids), 5)
-    assert_topk_match(td, ti, jd, ji, 1e-3)
+    rt.assert_topk_match(td, ti, jd, ji, 1e-3)
 
 
-@pytest.mark.parametrize("case", list(DEDUP_CASES))
+@pytest.mark.parametrize("case", rt.DEDUP_CASES)
 def test_dedup_topk_plain_matches_jax_ref_and_numpy(case):
-    kw = dict(DEDUP_CASES[case])
-    k = kw.pop("k", 8)
-    d, ids = dedup_inputs(3, **kw)
+    (d, ids), k = rt.dedup_case(case, seed=3)
     jd, ji = jops.dedup_topk(jnp.asarray(d), jnp.asarray(ids), k, impl="ref")
     td, ti = tops.dedup_topk(torch.from_numpy(d), torch.from_numpy(ids), k, impl="ref")
     nd, ni = tref.dedup_topk_np(d, ids, k)
@@ -85,11 +73,11 @@ def test_wrappers_take_plain_version_for_cpu_tensors():
     """The kernel wrappers run the plain version for CPU tensors (and only
     because the tensors lie on the CPU), without counting a launch."""
     l2_before, dd_before = l2_mod.launches, dd_mod.launches
-    q_pad, qbuf, cands, ids = (torch.from_numpy(a) for a in l2_inputs(4))
+    q_pad, qbuf, cands, ids = (torch.from_numpy(a) for a in rt.l2_case("holes+padding", seed=4)[0])
     for got, want in zip(l2_mod.l2_topk_qbuf(q_pad, qbuf, cands, ids, 5),
                          tref.l2_topk_qbuf_ref(q_pad, qbuf, cands, ids, 5)):
         assert torch.equal(got, want)
-    d, i = (torch.from_numpy(a) for a in dedup_inputs(5))
+    d, i = (torch.from_numpy(a) for a in rt.dedup_case("duplicates+padding+non-finite", seed=5)[0])
     for got, want in zip(dd_mod.dedup_topk(d, i, 8), tref.dedup_topk_ref(d, i, 8)):
         assert torch.equal(got, want)
     for got, want in zip(tops.dedup_topk(d, i, 8, impl="cuda"), tref.dedup_topk_ref(d, i, 8)):
