@@ -27,9 +27,9 @@ class LiraSystemConfig:
     auto_q_cap: bool = False        # engine doubles q_cap_factor after
                                     # persistent q_cap overflow
     impl: str = "auto"              # kernel backend: auto | ref | cuda
-    tier: str = "f32"               # serving tier; only f32 is ported so far
-    pq_m: int = 16                  # PQ knobs, carried for checkpoint parity
-    pq_ks: int = 256
-    rerank: int = 4
+    tier: str = "f32"               # serving tier: f32 | pq | residual_pq
+    pq_m: int = 16                  # PQ subspaces (dim % pq_m == 0)
+    pq_ks: int = 256                # codewords per subspace (≤ 256 → uint8 codes)
+    rerank: int = 4                 # shortlist depth r: rerank r·k slots per partition
     eta: float = 0.0                # replica fraction (from BuildConfig.eta)
     repartition_threshold: float = 0.25

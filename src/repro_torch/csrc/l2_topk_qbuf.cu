@@ -27,14 +27,17 @@
 //  * the running top-k (k = 100 on the main path) does not fit in registers,
 //    so it lives in shared memory, 32*k*8 bytes, as a sorted list per slot;
 //    one warp owns a slot and inserts the candidates that beat its k-th key
-//    (ballot to find them, a warp-wide shift to insert). Shared memory is
-//    ~85 KB at d=128, k=100, which needs the dynamic opt-in above 48 KB.
+//    (ballot to find them, a warp-wide shift to insert; topk_list.cuh).
+//    Shared memory is ~85 KB at d=128, k=100, which needs the dynamic opt-in
+//    above 48 KB.
 // wgmma/TMA and a heap-free selection are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include "topk_list.cuh"
 
 namespace {
 
@@ -43,7 +46,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kSlotChunk = 32;   // occupied slots scanned together
 constexpr int kTileC = 64;       // candidates per shared-memory tile
 constexpr int kSlotsPerThread = kSlotChunk * kTileC / kThreads;
-constexpr unsigned kFull = 0xffffffffu;
 constexpr size_t kMaxSmem = 232448;  // 227 KB, the most a block can opt into
 
 static_assert(kSlotChunk * kTileC % kThreads == 0, "tile must split evenly");
@@ -51,39 +53,6 @@ static_assert(kThreads / kTileC * kSlotsPerThread == kSlotChunk, "slot groups");
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-// (dist, candidate index) lexicographic order
-__device__ __forceinline__ bool key_less(float da, int ca, float db, int cb) {
-  return da < db || (da == db && ca < cb);
-}
-
-// Insert (nd, nc) into the ascending list (Ld, Lc) of length len <= k. The
-// caller guarantees the key beats the k-th entry when the list is full. All
-// 32 lanes of the warp call this together.
-__device__ __forceinline__ void list_insert(float* Ld, int* Lc, int& len, int k,
-                                            float nd, int nc, int lane) {
-  int p = 0;
-  for (int base = 0; base < len; base += 32) {
-    int i = base + lane;
-    bool less = i < len && key_less(Ld[i], Lc[i], nd, nc);
-    p += __popc(__ballot_sync(kFull, less));
-  }
-  // shift [p, last) one place right, top chunk first so nothing is overwritten
-  const int last = min(len, k - 1);
-  for (int base = (last - 1) & ~31; base >= (p & ~31) && last > 0; base -= 32) {
-    int i = base + lane;
-    bool mv = i >= p && i < last;
-    float v = 0.f;
-    int c = 0;
-    if (mv) { v = Ld[i]; c = Lc[i]; }
-    __syncwarp();
-    if (mv) { Ld[i + 1] = v; Lc[i + 1] = c; }
-    __syncwarp();
-  }
-  if (lane == 0) { Ld[p] = nd; Lc[p] = nc; }
-  __syncwarp();
-  len = min(len + 1, k);
-}
 
 __host__ __device__ inline size_t smem_floats(int S, int d, int k) {
   const size_t d4 = (size_t)((d + 3) & ~3);
@@ -222,18 +191,7 @@ l2_topk_qbuf_kernel(const T* __restrict__ q_pad, int n_rows,
         for (int h = 0; h < kTileC; h += 32) {
           const int cl = h + lane;
           const int c = c0 + cl;
-          const float dist = dt[s * kTileC + cl];
-          const bool ok = cid[cl] >= 0;
-          unsigned pend = __ballot_sync(kFull, ok && (len < k || key_less(dist, c, td, tc)));
-          while (pend) {
-            const int src = __ffs(pend) - 1;
-            const float nd = __shfl_sync(kFull, dist, src);
-            const int nc = __shfl_sync(kFull, c, src);
-            list_insert(Lds, Lcs, len, k, nd, nc, lane);
-            if (len == k) { td = Lds[k - 1]; tc = Lcs[k - 1]; }
-            pend &= ~(1u << src);
-            pend &= __ballot_sync(kFull, ok && (len < k || key_less(dist, c, td, tc)));
-          }
+          list_offer(Lds, Lcs, len, k, td, tc, cid[cl] >= 0, dt[s * kTileC + cl], c, lane);
         }
         if (lane == 0) Llen[s] = len;
       }

@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.kernels import dedup_topk as _dd
 from repro_torch.kernels import l2_topk as _l2
+from repro_torch.kernels import pq_adc as _adc
 from repro_torch.kernels import ref as _ref
 
 IMPLS = ("ref", "cuda")
@@ -42,6 +43,22 @@ def l2_topk_qbuf(q_pad, qbuf, cands, cand_ids, k: int, *, impl: str | None = Non
     if impl == "ref":
         return _ref.l2_topk_qbuf_ref(q_pad, qbuf, cands, cand_ids, k)
     return _l2.l2_topk_qbuf(q_pad, qbuf, cands, cand_ids, k)
+
+
+def pq_adc_topk_qbuf(lut_pad, qbuf, codes, cand_ids, k: int, *, cand_off=None, q_off=None,
+                     impl: str | None = None):
+    """Dispatch-buffer ADC shortlist: compact ``lut_pad`` [R, m, ks] + ``qbuf``
+    [B, S] indices vs [B, N, m] code sets → ([B, S, k], [B, S, k]), with the
+    residual offsets ``cand_off`` [B, N] and ``q_off`` [B, S] (None adds
+    zero). Codes keep their store dtype (uint8 / uint16); any N is taken."""
+    impl = resolve_impl(impl, codes.device)
+    qbuf = qbuf.to(torch.int32)
+    cand_ids = cand_ids.to(torch.int32)
+    if impl == "ref":
+        return _ref.pq_adc_topk_qbuf_ref(lut_pad, qbuf, codes, cand_ids, k,
+                                         cand_off=cand_off, q_off=q_off)
+    return _adc.pq_adc_topk_qbuf(lut_pad, qbuf, codes, cand_ids, k,
+                                 cand_off=cand_off, q_off=q_off)
 
 
 def dedup_topk(dists, ids, k: int, *, impl: str | None = None):

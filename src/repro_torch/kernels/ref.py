@@ -55,6 +55,94 @@ def l2_topk_qbuf_ref(q_pad: torch.Tensor, qbuf: torch.Tensor, cands: torch.Tenso
     return l2_topk_batched_ref(q_pad[qbuf.long()], cands, cand_ids, k)
 
 
+# ---------------------------------------------------------------- PQ / ADC
+#
+# The ADC sum runs over the subspaces in order, m = 0 … m−1, then adds q_off,
+# then cand_off: the order of the TPU kernel (pq_adc.py:345) and of the serve
+# path, so the CUDA kernel, which only adds, equals these bit for bit. (The
+# reference's flat oracle adds cand_off before q_off; the two agree within
+# rounding.) An offset of None adds nothing.
+
+# elements of one chunk's [buckets, slots, candidates] distance block: bounds
+# the plain version's memory at the serve path's widths
+_ADC_CHUNK = 1 << 25
+
+
+def _adc_sum(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """[G, Q, m, ks] LUTs × [G, N, m] codes → [G, Q, N] f32, summed over m in
+    order."""
+    g, q, m, _ = lut.shape
+    n = codes.shape[1]
+    lut = lut.float()
+    d = None
+    for j in range(m):
+        idx = codes[:, None, :, j].long().expand(g, q, n)
+        term = torch.gather(lut[:, :, j], 2, idx)
+        d = term if d is None else d + term
+    return d
+
+
+def _adc_topk(d: torch.Tensor, cand_ids: torch.Tensor, k: int):
+    """Mask ids < 0 and take the k smallest of [G, Q, N] distances."""
+    ids = cand_ids.to(torch.int32)
+    d = torch.where(ids[:, None, :] < 0, torch.inf, d)
+    if d.shape[2] < k:  # degenerate pools: pad so the top-k is well-defined
+        d = pad_dim(d, 2, k, torch.inf)
+        ids = pad_dim(ids, 1, k, PAD_ID)
+    out_d, pos = smallest_k(d, k)
+    out_i = torch.gather(ids[:, None, :].expand(-1, d.shape[1], -1), 2, pos)
+    return out_d, torch.where(torch.isfinite(out_d), out_i, PAD_ID)
+
+
+def pq_adc_ref(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """dist[q, n] = Σ_m lut[q, m, codes[n, m]]: [Q, m, ks] × [N, m] → [Q, N]."""
+    return _adc_sum(lut[None], codes[None])[0]
+
+
+def pq_adc_topk_ref(lut: torch.Tensor, codes: torch.Tensor, cand_ids: torch.Tensor, k: int,
+                    cand_off=None, q_off=None):
+    """Fused ADC + top-k: ([Q, k] ascending dists inf-padded, [Q, k] ids
+    -1-padded). ``q_off`` [Q] shifts a query's distances, ``cand_off`` [N]
+    a candidate's (the residual-PQ offsets, core/pq.py)."""
+    out_d, out_i = pq_adc_topk_batched_ref(
+        lut[None], codes[None], cand_ids[None], k,
+        cand_off=None if cand_off is None else cand_off[None],
+        q_off=None if q_off is None else q_off[None])
+    return out_d[0], out_i[0]
+
+
+def pq_adc_topk_batched_ref(lut: torch.Tensor, codes: torch.Tensor, cand_ids: torch.Tensor,
+                            k: int, cand_off=None, q_off=None):
+    """[B, Q, m, ks] × [B, N, m] → ([B, Q, k], [B, Q, k]), with the offsets
+    ``q_off`` [B, Q] and ``cand_off`` [B, N]."""
+    qbuf = torch.arange(lut.shape[0] * lut.shape[1], dtype=torch.int64,
+                        device=lut.device).reshape(lut.shape[:2])
+    return pq_adc_topk_qbuf_ref(lut.reshape(-1, *lut.shape[2:]), qbuf, codes, cand_ids, k,
+                                cand_off=cand_off, q_off=q_off)
+
+
+def pq_adc_topk_qbuf_ref(lut_pad: torch.Tensor, qbuf: torch.Tensor, codes: torch.Tensor,
+                         cand_ids: torch.Tensor, k: int, cand_off=None, q_off=None):
+    """Oracle for the dispatch-buffer ADC scan: ``lut_pad`` [R, m, ks] rows
+    gathered through ``qbuf`` [B, S] against ``codes`` [B, N, m]. Buckets go
+    in chunks, so the ``[B, S, m, ks]`` gather and the ``[B, S, N]``
+    distances are never whole."""
+    b, s = qbuf.shape
+    n = codes.shape[1]
+    step = max(1, _ADC_CHUNK // max(1, s * n, s * lut_pad[0].numel()))
+    out_d = torch.empty((b, s, k), dtype=torch.float32, device=lut_pad.device)
+    out_i = torch.empty((b, s, k), dtype=torch.int32, device=lut_pad.device)
+    for b0 in range(0, b, step):
+        sl = slice(b0, b0 + step)
+        d = _adc_sum(lut_pad[qbuf[sl].long()], codes[sl])
+        if q_off is not None:
+            d = d + q_off[sl].float()[:, :, None]
+        if cand_off is not None:
+            d = d + cand_off[sl].float()[:, None, :]
+        out_d[sl], out_i[sl] = _adc_topk(d, cand_ids[sl], k)
+    return out_d, out_i
+
+
 def dedup_topk_ref(dists: torch.Tensor, ids: torch.Tensor, k: int):
     """Exact replica-aware merge of a candidate pool.
 

@@ -21,7 +21,10 @@ class BuildConfig:
     nprobe_max: Optional[int] = None  # None → max(8, n_partitions // 8)
     seed: int = 0
     log: bool = False
-    tier: str = "f32"               # serving tier; only f32 is ported so far
+    tier: str = "f32"               # serving tier: f32 | pq | residual_pq
+    pq_m: Optional[int] = None      # PQ subspaces; None → largest divisor of dim ≤ 16
+    pq_ks: int = 256                # codewords per subspace (≤ 256 → uint8 codes)
+    rerank: int = 4                 # shortlist depth r: rerank r·k slots per partition
     impl: str = "auto"              # kernel backend: auto | ref | cuda
     store_dtype: str = "float32"    # vector plane dtype (bfloat16 halves scan reads)
     q_cap_factor: float = 2.0

@@ -7,7 +7,9 @@ serve step:
   2. dispatch: a sort-based scatter of (query, partition) probes into the
      ``qbuf [B, q_cap]`` buffer; probes beyond a partition's q_cap are counted
      as overflow, batch-padding rows never probe;
-  3. scan: ``kernels.l2_topk_qbuf`` per partition (serving/scan.py);
+  3. scan (serving/scan.py): ``kernels.l2_topk_qbuf`` per partition for the
+     f32 tier; for the quantized tiers an ADC shortlist through
+     ``kernels.pq_adc_topk_qbuf``, then an exact f32 rerank;
   4. merge: scatter back per query, then the replica-aware
      ``kernels.dedup_topk`` over each query's [B·k] pool.
 """
@@ -48,14 +50,19 @@ def _dup_count(ids_pool: torch.Tensor) -> torch.Tensor:
 
 
 def make_serve_step(cfg: LiraSystemConfig, n_queries: int, *, sigma: float, impl: str,
-                    k: int):
-    """The serve step for one batch size and kernel backend (``"ref"`` or
-    ``"cuda"``). Returns ``serve_step(model, store, queries [n, d], valid [n]
-    bool) → (dists [n, k], ids [n, k], nprobe_eff [n] f32, overflow [],
-    dedup_hits [])``, all tensors on the store's device."""
+                    k: int, tier=None):
+    """The serve step for one batch size, tier (default ``cfg.tier``) and
+    kernel backend (``"ref"`` or ``"cuda"``). Returns ``serve_step(model,
+    store, queries [n, d], valid [n] bool) → (dists [n, k], ids [n, k],
+    nprobe_eff [n] f32, overflow [], dedup_hits [])``, all tensors on the
+    store's device."""
     q_row = n_queries
     b_loc = cfg.n_partitions
     q_cap = max(8, int(q_row * cfg.nprobe_max / cfg.n_partitions * cfg.q_cap_factor))
+    tier = tiers.resolve(tier if tier is not None else cfg.tier)
+    # the tier's fields beyond the probing/dispatch/rerank operands go back
+    # to the tier, which assembles the scan's extra operands from them
+    extra_fields = tuple(n for n in tier.store_specs(cfg) if n not in tiers.BASE_FIELDS)
 
     @torch.no_grad()
     def serve_step(model, store, queries, valid):
@@ -102,7 +109,9 @@ def make_serve_step(cfg: LiraSystemConfig, n_queries: int, *, sigma: float, impl
         # ---- per-partition scan
         q_pad = torch.cat([q, torch.full((1, q.shape[1]), _SENTINEL, dtype=q.dtype,
                                          device=dev)])
-        dists, rids = scan.run(impl, qbuf, q_pad, store["vectors"], ids_loc, k)
+        ctx = tiers.ScanContext(q_loc=q, q_pad=q_pad, cd=cd, b_loc=b_loc, k=k)
+        scan_kw = tier.scan_kwargs(cfg, ctx, {n: store[n] for n in extra_fields})
+        dists, rids = scan.run(impl, qbuf, q_pad, store["vectors"], ids_loc, k, **scan_kw)
 
         # ---- scatter back per query (row q_row takes the empty slots), merge
         out_d = torch.full((q_row + 1, b_loc, k), torch.inf, dtype=torch.float32, device=dev)
@@ -121,13 +130,14 @@ def make_serve_step(cfg: LiraSystemConfig, n_queries: int, *, sigma: float, impl
 
 
 def _jax_leaf_names(cfg: LiraSystemConfig) -> list:
-    """Leaf paths of a JAX ``LiraEngine.save`` tree for the f32 tier, in
-    ``jax.tree.flatten`` order: dict keys sorted, lists in order."""
+    """Leaf paths of a JAX ``LiraEngine.save`` tree, in ``jax.tree.flatten``
+    order (dict keys sorted, lists in order); the store's fields are those
+    the config's tier declares."""
     n_layers = {"phi_i": len(cfg.i_hidden), "phi_p": len(cfg.p_hidden) + 1,
                 "phi_q": len(cfg.q_hidden)}
     names = [("params", g, i, leaf) for g in sorted(n_layers)
              for i in range(n_layers[g]) for leaf in ("b", "w")]
-    return names + [("store", f) for f in sorted(tiers.BASE_FIELDS)]
+    return names + [("store", f) for f in sorted(tiers.resolve(cfg.tier).store_specs(cfg))]
 
 
 @dataclasses.dataclass
@@ -185,17 +195,23 @@ class LiraEngine:
             arch="lira", dim=xt.shape[1], n_partitions=n_partitions,
             capacity=store_h.capacity, k=config.k,
             nprobe_max=min(n_partitions, config.nprobe_max or max(8, n_partitions // 8)),
-            tier=tier.name, impl=config.impl, store_dtype=config.store_dtype,
+            tier=tier.name, pq_m=config.pq_m or 0, pq_ks=config.pq_ks,
+            rerank=config.rerank, impl=config.impl, store_dtype=config.store_dtype,
             q_cap_factor=config.q_cap_factor, auto_q_cap=config.auto_q_cap,
             eta=config.eta)
-        return cls(cfg=cfg, model=model, store=tier.build_store(cfg, store_h),
-                   device=dev, sigma=config.sigma)
+        # the tier builds its store and may amend cfg (PQ resolves pq_m and
+        # clamps pq_ks for a small store)
+        store, cfg = tier.build_store(cfg, store_h, generator=gen)
+        if not cfg.pq_m:  # tiers without PQ leave the knob at its default
+            cfg = dataclasses.replace(cfg, pq_m=16)
+        return cls(cfg=cfg, model=model, store=store, device=dev, sigma=config.sigma)
 
     @classmethod
     def load_jax(cls, directory, device=None, step: Optional[int] = None) -> "LiraEngine":
-        """An engine from a JAX ``LiraEngine.save`` directory (f32 tier): the
-        config from the manifest's ``extra.config``, the probing parameters
-        and the store from the leaf files, each leaf checked against the
+        """An engine from a JAX ``LiraEngine.save`` directory: the config from
+        the manifest's ``extra.config``, the probing parameters and the store
+        fields its tier declares (PQ codes, codebooks and cross terms
+        included) from the leaf files, each leaf checked against the
         manifest. bfloat16 stores were saved upcast to f32 and are cast back.
         The saved kernel backend is not carried over: the engine serves with
         the device's default (the kernels on the card)."""
@@ -207,10 +223,10 @@ class LiraEngine:
         # the saved kernel backend was the reference's choice (ref, pallas,
         # interpret); here only the caller's impl= picks the plain version
         cfg = LiraSystemConfig(**{**raw, "impl": "auto"})
-        tiers.resolve(cfg.tier)
+        tier = tiers.resolve(cfg.tier)
         names = _jax_leaf_names(cfg)
         if meta["n_leaves"] != len(names):
-            raise ValueError(f"checkpoint has {meta['n_leaves']} leaves; an f32-tier "
+            raise ValueError(f"checkpoint has {meta['n_leaves']} leaves; a {tier.name!r}-tier "
                              f"engine of this config has {len(names)}")
         leaves = dict(zip(names, checkpoint.load_leaves(step_dir, meta)))
         params: dict = {}
@@ -223,7 +239,7 @@ class LiraEngine:
                 layers[i][leaf] = arr
         model = probing.params_from_jax(params, device=dev)
         store = {}
-        for name, (shape, dtype) in tiers.resolve(cfg.tier).store_specs(cfg).items():
+        for name, (shape, dtype) in tier.store_specs(cfg).items():
             arr = leaves[("store", name)]
             if tuple(arr.shape) != shape:
                 raise ValueError(f"store/{name}: shape {arr.shape}, config wants {shape}")
@@ -250,13 +266,19 @@ class LiraEngine:
         if q.ndim != 2 or q.shape[1] != self.cfg.dim:
             raise ValueError(f"queries must be [nq, {self.cfg.dim}], got {q.shape}")
         tier_obj = tiers.resolve(req.tier if req.tier is not None else self.cfg.tier)
+        missing = [f for f in tier_obj.store_specs(self.cfg) if f not in self.store]
+        if missing:
+            raise ValueError(f"engine store lacks {missing} required by tier "
+                             f"{tier_obj.name!r}; build with tier={tier_obj.name!r}")
+        tier_obj.check_servable(self.cfg)  # e.g. pq refuses residual codes
         sigma = self.sigma if req.sigma is None else req.sigma
         k = self.cfg.k if req.k is None else int(req.k)
         nq = q.shape[0]
         nq_pad = self._batch_bucket(nq)
         impl = kops.resolve_impl(req.impl if req.impl is not None else self.cfg.impl,
                                  self.device)
-        fn = make_serve_step(self.cfg, nq_pad, sigma=float(sigma), impl=impl, k=k)
+        fn = make_serve_step(self.cfg, nq_pad, sigma=float(sigma), impl=impl, k=k,
+                             tier=tier_obj)
         qp = torch.zeros((nq_pad, self.cfg.dim), dtype=torch.float32, device=self.device)
         qp[:nq] = torch.as_tensor(q, device=self.device)
         valid = torch.zeros((nq_pad,), dtype=torch.bool, device=self.device)

@@ -1,11 +1,27 @@
-"""Serving-tier registry (counterpart of ``repro/serving/tiers.py``); only
-the exact f32 tier is ported so far. A tier declares its store fields and
-builds them from the host-side partition store."""
+"""Serving-tier registry (counterpart of ``repro/serving/tiers.py``). A tier
+declares its store fields, builds them from the partition store, says which
+stores it can serve, and hands the scan its extra operands:
+
+  * ``store_specs(cfg)`` — every store field's shape and dtype;
+  * ``build_store(cfg, store_h, generator=)`` — (store dict, cfg), cfg amended
+    where the build resolves a knob (PQ's ``pq_m`` default, ``pq_ks`` clamp);
+  * ``check_servable(cfg)`` — raise if the tier cannot serve a store built
+    for ``cfg.tier`` (beyond field presence, which the engine checks);
+  * ``scan_kwargs(cfg, ctx, fields)`` — extra ``scan.run`` operands; ``{}``
+    is the plain f32 scan.
+
+Registered: ``f32`` (exact scan; ``cfg.store_dtype`` sets the vector plane's
+dtype), ``pq`` (shared-LUT ADC shortlist + exact rerank) and ``residual_pq``
+(codes over x − centroid, with the residual offsets).
+"""
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
-# fields every tier provides — the serve step's probing/dispatch/scan operands
+# fields every tier provides — the serve step's probing/dispatch/rerank
+# operands; tiers add their scan-stage fields after these
 BASE_FIELDS = ("centroids", "vectors", "ids", "occupancy")
 
 STORE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -18,9 +34,21 @@ def store_dtype(cfg) -> torch.dtype:
         raise ValueError(f"store_dtype {cfg.store_dtype!r} not in {sorted(STORE_DTYPES)}") from None
 
 
+@dataclasses.dataclass(frozen=True)
+class ScanContext:
+    """Serve-step state a tier may derive scan operands from."""
+
+    q_loc: torch.Tensor     # [q_row, d] query rows
+    q_pad: torch.Tensor     # [q_row + 1, d] queries + sentinel row
+    cd: torch.Tensor        # [q_row, B] query↔centroid squared distances
+    b_loc: int              # partitions on this device
+    k: int                  # top-k depth of this serve step
+
+
 class F32Tier:
     """The exact f32 scan. ``cfg.store_dtype`` sets the vector plane's dtype
-    (bfloat16 halves scan reads; distances accumulate in f32 either way)."""
+    (bfloat16 halves scan reads; distances accumulate in f32 either way, and
+    the quantized tiers' rerank upcasts to f32)."""
 
     name = "f32"
     aliases = ("exact", "float32")
@@ -33,23 +61,118 @@ class F32Tier:
                 "ids": ((b, c), torch.int32),
                 "occupancy": ((b, c), torch.bool)}
 
-    def build_store(self, cfg, store_h) -> dict:
+    def slot_fields(self, cfg) -> tuple:
+        """Store fields indexed per (partition, slot): the planes a mutation
+        moves together."""
+        b, c = cfg.n_partitions, cfg.capacity
+        return tuple(name for name, (shape, _) in self.store_specs(cfg).items()
+                     if name != "centroids" and shape[:2] == (b, c))
+
+    def build_store(self, cfg, store_h, *, generator=None):
+        del generator
         ids = store_h.ids
-        return {"centroids": store_h.centroids,
-                "vectors": store_h.vectors.to(store_dtype(cfg)),
-                "ids": ids, "occupancy": ids >= 0}
+        store = {"centroids": store_h.centroids,
+                 "vectors": store_h.vectors.to(store_dtype(cfg)),
+                 "ids": ids, "occupancy": ids >= 0}
+        return store, cfg
+
+    def check_servable(self, cfg) -> None:
+        """Any store carries the exact f32 operands."""
+        del cfg
+
+    def scan_kwargs(self, cfg, ctx: ScanContext, fields: dict) -> dict:
+        del cfg, ctx, fields
+        return {}
 
 
-_REGISTRY = {name: F32Tier() for name in (F32Tier.name, *F32Tier.aliases)}
+class PqTier(F32Tier):
+    """Two-stage quantized tier: one ADC LUT per query → a shortlist of
+    ``rerank·k`` slots over the uint8 codes → exact f32 rerank
+    (serving/quantized.py builds the store)."""
+
+    name = "pq"
+    aliases = ("quantized",)
+    residual = False
+
+    def store_specs(self, cfg) -> dict:
+        from repro_torch.core.pq import code_dtype
+
+        specs = super().store_specs(cfg)
+        b, c = cfg.n_partitions, cfg.capacity
+        specs["codes"] = ((b, c, cfg.pq_m), code_dtype(cfg.pq_ks))
+        specs["codebooks"] = ((cfg.pq_m, cfg.pq_ks, cfg.dim // cfg.pq_m), torch.float32)
+        return specs
+
+    def build_store(self, cfg, store_h, *, generator=None):
+        from repro_torch.serving import quantized
+
+        store, cfg = super().build_store(cfg, store_h)
+        # default pq_m: the largest divisor of dim ≤ 16 (subspaces tile dim)
+        m = cfg.pq_m or max(m for m in range(1, min(16, cfg.dim) + 1) if cfg.dim % m == 0)
+        qs = quantized.build_quantized_store(
+            store_h.vectors, store_h.ids, m=m, ks=cfg.pq_ks, residual=self.residual,
+            centroids=store_h.centroids if self.residual else None, generator=generator)
+        store["codes"], store["codebooks"] = qs.codes, qs.codebooks
+        if self.residual:
+            store["cterm"] = qs.cterm
+        # ks may have been clamped for a small store
+        return store, dataclasses.replace(cfg, pq_m=m, pq_ks=qs.ks)
+
+    def check_servable(self, cfg) -> None:
+        # residual codes encode x − centroid: a plain shared-LUT scan of them
+        # would rank by distance to the residual — wrong answers, not an error
+        if not self.residual and cfg.tier == "residual_pq":
+            raise ValueError(
+                "store codes are residual-encoded (built with tier='residual_pq'); "
+                "serve tier='residual_pq' or the exact 'f32' fallback, not 'pq'")
+
+    def scan_kwargs(self, cfg, ctx: ScanContext, fields: dict) -> dict:
+        from repro_torch.serving import quantized
+
+        codes, codebooks = fields["codes"], fields["codebooks"]
+        rk = min(cfg.capacity, max(ctx.k, int(cfg.rerank) * ctx.k))
+        # one LUT per query, valid in every partition; the zero row pairs
+        # with q_pad's sentinel. The scan takes this compact plane and never
+        # expands it per slot.
+        lut_pad = torch.cat([quantized.adc_lut(codebooks, ctx.q_loc),
+                             codebooks.new_zeros((1, codes.shape[-1], codebooks.shape[1]))])
+        return {"lut_pad": lut_pad, "codes_loc": codes, "rk": rk}
 
 
-def resolve(tier):
-    """Tier name (or instance) → the registered tier. The quantized tiers
-    (pq, residual_pq) are not ported yet and raise like a typo does."""
+class ResidualPqTier(PqTier):
+    """PQ over x − centroid: the code budget goes to the within-partition
+    residual, paid for by a per-slot cterm plane and a per-(query,
+    partition) offset taken from the probing distances."""
+
+    name = "residual_pq"
+    aliases = ("residual",)
+    residual = True
+
+    def store_specs(self, cfg) -> dict:
+        specs = super().store_specs(cfg)
+        specs["cterm"] = ((cfg.n_partitions, cfg.capacity), torch.float32)
+        return specs
+
+    def scan_kwargs(self, cfg, ctx: ScanContext, fields: dict) -> dict:
+        kw = super().scan_kwargs(cfg, ctx, fields)
+        # ‖c_b‖² − 2⟨q, c_b⟩ = cd − ‖q‖² per (query, partition), from the
+        # probing distances; the zero row is the empty slot's
+        off = ctx.cd - (ctx.q_loc * ctx.q_loc).sum(-1, keepdim=True)
+        off_pad = torch.cat([off, off.new_zeros((1, off.shape[1]))])
+        kw.update(cterm_loc=fields["cterm"], off_loc=off_pad[:, :ctx.b_loc].T)
+        return kw
+
+
+_TIERS = (F32Tier(), PqTier(), ResidualPqTier())
+_REGISTRY = {name: t for t in _TIERS for name in (t.name, *t.aliases)}
+
+
+def resolve(tier) -> F32Tier:
+    """Tier name, alias or instance → the registered tier; a typo raises."""
     if isinstance(tier, F32Tier):
         return tier
     try:
         return _REGISTRY[tier]
     except KeyError:
-        raise ValueError(f"unknown or unported serving tier {tier!r}; "
-                         f"available: {sorted(_REGISTRY)}") from None
+        raise ValueError(f"unknown serving tier {tier!r}; available: "
+                         f"{sorted(_REGISTRY)}") from None

@@ -1,7 +1,7 @@
 """The rule by which a top-k kernel is held against its plain version (and
 the port against the JAX reference), and the edge-case inputs that exercise
-the two kernels. ``chip_smoke.py`` runs the cases at the main path's widths
-on the card; the tests run them small on the CPU.
+the kernels. ``chip_smoke.py`` runs the cases at the main path's widths on
+the card; the tests run them small on the CPU.
 
 Tolerances: distances rtol 1e-5, atol 1e-5·max(‖q‖²+‖c‖²) — the L2 expansion
 ‖q‖² − 2q·c + ‖c‖² loses precision in proportion to the norms, not to the
@@ -9,7 +9,10 @@ distance. Ids are set-equal per row except among candidates whose distances
 tie within that tolerance at the k-th place; where the inputs are small
 integers the distances are exact and the ids must match element for element
 (the lowest index wins a tie). The merge does no arithmetic, so its outputs
-must be equal.
+must be equal. The ADC scan only adds, in a fixed order, so the kernel must
+equal its plain version; against the JAX oracle, which adds the offsets in
+the other order, distances agree to rtol 1e-5, atol 1e-5·(the largest
+|LUT sum| + |q_off| + |cand_off|) (``adc_atol``).
 """
 from __future__ import annotations
 
@@ -168,3 +171,70 @@ def dedup_case(case: str, *, width: str = "small", seed: int = 0):
         d[rng.random((q, p)) < 0.05] = np.nan
         d[rng.random((q, p)) < 0.05] = -np.inf
     return (d, ids), kw["k"]
+
+
+# "small" runs in the CPU tests; "main" is the quantized serve path's width
+# (d = 128 as m = 16 subspaces of ks = 256 codewords, a shortlist of
+# rk = 400) for the card
+ADC_WIDTHS = {"small": dict(b=4, s=12, n=60, m=4, ks=16, n_rows=20, k=7),
+              "main": dict(b=8, s=16, n=1500, m=16, ks=256, n_rows=300, k=400)}
+
+_ADC_CASES = {
+    "holes+padding": lambda w: {},
+    "k>N": lambda w: dict(n=max(6, w["k"] // 3), pad_tail=2),
+    "empty-slot rows": lambda w: dict(empty_frac=0.8),
+    "all ids padding": lambda w: dict(hole_frac=1.0),
+    # small-integer LUTs and duplicate code rows: exact distances, exact ties
+    "exact ties": lambda w: dict(integer=True, hole_frac=0.0, pad_tail=0),
+    "residual offsets": lambda w: dict(offsets=True),
+    "uint16 codes": lambda w: dict(ks=512, offsets=True),
+    # 40 occupied slots in a bucket span several of the kernel's slot groups
+    "more slots than one group": lambda w: dict(s=40, empty_frac=0.0, offsets=True),
+}
+ADC_CASES = tuple(_ADC_CASES)
+
+
+def adc_case(case: str, *, width: str = "small", seed: int = 0):
+    """One ``pq_adc_topk_qbuf`` edge case: (lut_pad [R, m, ks] f32, qbuf [B, S]
+    int32, codes [B, N, m] uint8 or uint16, ids [B, N] int32, cand_off [B, N]
+    f32 or None, q_off [B, S] f32 or None) as numpy, k, and whether ids must
+    match exactly. The last LUT row is the empty slot's zero row. In every
+    case bucket 0 has no valid candidate and the last bucket no occupied
+    slot; the rest have holes, a padding tail and empty slots."""
+    w = ADC_WIDTHS[width]
+    kw = {**w, "hole_frac": 0.15, "pad_tail": w["n"] // 6, "empty_frac": 0.3,
+          "integer": False, "offsets": False, **_ADC_CASES[case](w)}
+    b, s, n, m, ks, n_rows = (kw[x] for x in ("b", "s", "n", "m", "ks", "n_rows"))
+    rng = np.random.default_rng(seed)
+    if kw["integer"]:
+        lut = rng.integers(0, 4, (n_rows, m, ks)).astype(np.float32)
+    else:
+        lut = (rng.random((n_rows, m, ks)) * 10).astype(np.float32)
+    lut_pad = np.concatenate([lut, np.zeros((1, m, ks), np.float32)])
+    codes = rng.integers(0, ks, (b, n, m)).astype(np.uint8 if ks <= 256 else np.uint16)
+    if kw["integer"]:
+        codes[:, 1::2] = codes[:, ::2][:, :n // 2]   # duplicate rows, distinct ids
+    ids = rng.permutation(b * n).reshape(b, n).astype(np.int32)
+    ids[rng.random((b, n)) < kw["hole_frac"]] = -1
+    if kw["pad_tail"]:
+        ids[:, -kw["pad_tail"]:] = -1
+    ids[0] = -1
+    qbuf = rng.integers(0, n_rows, (b, s)).astype(np.int32)
+    qbuf[rng.random((b, s)) < kw["empty_frac"]] = n_rows
+    qbuf[-1] = n_rows
+    cand_off = q_off = None
+    if kw["offsets"]:
+        cand_off = (rng.normal(size=(b, n)) * 5).astype(np.float32)
+        q_off = (rng.normal(size=(b, s)) * 5).astype(np.float32)
+    return (lut_pad, qbuf, codes, ids, cand_off, q_off), kw["k"], kw["integer"]
+
+
+def adc_atol(lut_pad, cand_off=None, q_off=None) -> float:
+    """1e-5 · (the largest |LUT sum| + max |q_off| + max |cand_off|), at
+    least 1e-5."""
+    lut = torch.as_tensor(lut_pad).float()
+    top = float(lut.abs().amax(-1).sum(-1).max()) if lut.numel() else 0.0
+    for off in (cand_off, q_off):
+        if off is not None and torch.as_tensor(off).numel():
+            top += float(torch.as_tensor(off).abs().max())
+    return 1e-5 * max(top, 1.0)

@@ -117,7 +117,7 @@ def test_search_request_overrides_and_buckets(engines, dataset):
     assert teng._batch_bucket(1) == 8 and teng._batch_bucket(65) == 128
     with pytest.raises(TypeError):
         teng.search(SearchRequest(queries=q[:3]), sigma=0.5)
-    with pytest.raises(ValueError, match="unported"):
+    with pytest.raises(ValueError, match="lacks"):  # an f32 store has no PQ codes
         teng.search(q[:3], tier="pq")
 
 

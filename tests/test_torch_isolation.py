@@ -33,7 +33,8 @@ def test_no_module_imports_jax_or_the_jax_package():
 
 def test_importing_the_port_leaves_jax_unloaded():
     code = ("import sys, repro_torch.serving.engine, repro_torch.kernels.ops, "
-            "repro_torch.configs.lira_ann, repro_torch.data.synthetic; "
+            "repro_torch.configs.lira_ann, repro_torch.configs.lira_ann_q, "
+            "repro_torch.serving.quantized, repro_torch.core.pq, repro_torch.data.synthetic; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(PKG.parent))
