@@ -10,7 +10,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                repro_torch.testing's edge cases (padding ids, k > pool,
                duplicate ids, exact ties, non-finite distances, bf16 store,
                residual offsets, uint16 codes, empty slots, buckets and rows
-               with nothing valid) at the main paths' widths, under the same
+               with nothing valid, ties across the flat scan's candidate
+               ranges, ragged N and B, B = 1, d not a multiple of 4,
+               duplicate centroids) at the main paths' widths, under the same
                rule the tests use;
   4. main    — one engine at the lira-ann-q widths (dim 128, B = 1024
                partitions, k = 100, nprobe_max = 64, tier residual_pq with
@@ -29,7 +31,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                widths): launches, recall@100 against its own f32 tier, and
                cuda vs ref;
   6. kernels — each kernel against its plain version on the inputs the main
-               paths gave it, timed with CUDA events beside its bound.
+               paths gave it, timed with CUDA events beside its bound;
+  7. kmeans  — the build's k-means over the 1M base (B = 1024, 20 Lloyd
+               iterations from one k-means++ start): two plain fits must be
+               equal bit for bit, a fit through kmeans_assign (21 launches)
+               must reach the plain inertia within 1e-3, and one assignment
+               pass at its centroids is held kernel vs plain (near-ties
+               counted) and timed over the base and over 10M points made on
+               the card;
+  8. flat    — l2_topk of the first 1,000 queries over the whole base at
+               k = 100, held against its plain version and against exact
+               ground truth (up to ties at the 100th place), timed;
+  9. batched — l2_topk_batched of the f32 path's first dispatch buffer
+               expanded to [1024, 128, 128] against the store, held against
+               its plain version and, on the occupied slots, against
+               l2_topk_qbuf; timed.
+Phases 7-9 zero their kernel's launch counter just before the path and read
+it just after. Every matmul runs in full f32 (TF32 off for matmul and cuDNN),
+so the plain versions are exact oracles.
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -108,6 +127,30 @@ def compare_dedup(what, dists, ids, k) -> float:
     return rt.assert_topk_match(d_k, i_k, d_p, i_p, 0.0, exact_ids=True, what=what)
 
 
+def compare_assign(what, x, c, *, exact=False):
+    """Kernel vs plain version under ``assert_assign_match``; returns (max abs
+    error, points assigned differently: near-ties)."""
+    from repro_torch import testing as rt
+    from repro_torch.kernels import ops as kops
+
+    ka, kd = kops.kmeans_assign(x, c, impl="cuda")
+    pa, pd = kops.kmeans_assign(x, c, impl="ref")
+    return rt.assert_assign_match(ka, kd, pa, pd, x, c, exact=exact, what=what)
+
+
+def compare_scan(what, q, cands, ids, k, *, batched, exact_ids=False) -> float:
+    """Flat or batched scan, kernel vs plain version, under ``l2_atol``."""
+    from repro_torch import testing as rt
+    from repro_torch.kernels import ops as kops
+
+    fn = kops.l2_topk_batched if batched else kops.l2_topk
+    d_k, i_k = fn(q, cands, ids, k, impl="cuda")
+    d_p, i_p = fn(q, cands, ids, k, impl="ref")
+    return rt.assert_topk_match(d_k, i_k, d_p, i_p, rt.l2_atol(q.reshape(-1, q.shape[-1]),
+                                                              cands, ids),
+                                exact_ids=exact_ids, what=what)
+
+
 def edge_cases(dev) -> None:
     """Each kernel against its plain version at every edge case, at the main
     paths' widths (d = 128, k = 100; merge rows of 102,400 entries; ADC with
@@ -135,6 +178,23 @@ def edge_cases(dev) -> None:
         compare_adc(case, lut_pad, qbuf, codes, ids, k, coff, qoff)
         log(f"edges  pq_adc_topk_qbuf  {case}: ok, equal ({codes.dtype}, "
             f"S {qbuf.shape[1]}, N {codes.shape[1]}, k {k})")
+    for case in rt.KMEANS_CASES:
+        (x, c), dtype, exact = rt.kmeans_case(case, width="main")
+        x, c = (torch.from_numpy(a).to(dev).to(getattr(torch, dtype)) for a in (x, c))
+        err, ties = compare_assign(case, x, c, exact=exact)
+        log(f"edges  kmeans_assign  {case}: ok{', equal' if exact else ''} (N {x.shape[0]}, "
+            f"B {c.shape[0]}, d {x.shape[1]}, {dtype}; max abs err {err:.3g}, "
+            f"{ties} near-ties assigned differently)")
+    for case in rt.L2_SCAN_CASES:
+        (q, cands, ids), k, dtype, exact = rt.l2_scan_case(case, width="main")
+        tdt = getattr(torch, dtype)
+        q, cands = (torch.from_numpy(a).to(dev).to(tdt) for a in (q, cands))
+        ids = torch.from_numpy(ids).to(dev)
+        e1 = compare_scan(case, q[0], cands[0], ids[0], k, batched=False, exact_ids=exact)
+        e2 = compare_scan(case, q, cands, ids, k, batched=True, exact_ids=exact)
+        log(f"edges  l2_topk / l2_topk_batched  {case}: ok{', ids equal' if exact else ''} "
+            f"(B {q.shape[0]}, Q {q.shape[1]}, C {cands.shape[1]}, k {k}; max abs err "
+            f"{max(e1, e2):.3g})")
 
 
 # ---------------------------------------------------------------- timing
@@ -200,6 +260,26 @@ def adc_bound(lut_pad, qbuf, codes, cand_ids, k, cand_off, q_off):
     return nbytes, ops, PEAK_OPS["float32"]
 
 
+def scan_bound(q, cands, cand_ids, k):
+    """Least time for a batched scan (the flat one is one set): each input
+    read once (every query row, every id, the valid candidates), each output
+    written once; 2·d flops per (query row, valid candidate of its set)."""
+    valid = float((cand_ids >= 0).sum())
+    item = cands.element_size()
+    d, nq = cands.shape[-1], q.shape[-2]
+    nbytes = (q.numel() * q.element_size() + valid * d * item + cand_ids.numel() * 4
+              + q.shape[:-1].numel() * k * 8)
+    return nbytes, valid * nq * 2 * d, PEAK_OPS["bfloat16" if item == 2 else "float32"]
+
+
+def assign_bound(x, c):
+    """Least time for one assignment pass: x and the centroids read once, the
+    assignment and its distance written once; 2·d flops per (point,
+    centroid)."""
+    nbytes = (x.numel() + c.numel()) * x.element_size() + x.shape[0] * 8
+    return nbytes, 2.0 * x.shape[0] * c.shape[0] * x.shape[1], PEAK_OPS["float32"]
+
+
 def bound_entry(nbytes, ops, peak):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -229,6 +309,173 @@ def profile_batch(eng, queries, what, **search_kw) -> None:
         f"profiler, device busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%)")
     for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:14]:
         log(f"profile   {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:100]}")
+
+
+def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, bound, shapes):
+    """One kernel's line of the kernels JSON; no single PyTorch call computes
+    any of these functions, so ``library_ms`` is null."""
+    bound_ms, bound_by = bound
+    return {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "shapes": shapes}
+
+
+# ---------------------------------------------------------------- k-means and exact scans
+
+def kmeans_phase(dev, base, n_big: int):
+    """The build's k-means at the main widths (B = 1024 over the base, 20
+    Lloyd iterations, as LiraEngine.build runs it): two plain fits from one
+    k-means++ start must repeat their bits; a fit through the kernel, its
+    launches counted, must reach the plain fit's inertia within 1e-3; at its
+    centroids one assignment pass is held kernel vs plain and timed, over the
+    base and over ``n_big`` points made on the card. Returns the kernel's
+    JSON entry."""
+    import torch
+
+    from repro_torch.core import kmeans as km
+    from repro_torch.kernels import kmeans_assign as km_mod
+    from repro_torch.kernels import ops as kops
+
+    n_clusters, iters = MAIN_BUILD["n_partitions"], 20
+    x = torch.as_tensor(base, device=dev)
+    t0 = time.perf_counter()
+    init = km.plus_plus_init(x, n_clusters, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"kmeans k-means++ over {tuple(x.shape)} to B = {n_clusters} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    fits = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        fits.append(km.lloyd(x, init, iters))
+        torch.cuda.synchronize()
+        log(f"kmeans plain Lloyd, {iters} iterations: {time.perf_counter() - t0:.2f} s, "
+            f"inertia {float(fits[-1].inertia):.9g}")
+    if not (torch.equal(fits[0].centroids, fits[1].centroids)
+            and torch.equal(fits[0].assign, fits[1].assign)):
+        raise AssertionError("kmeans: two plain Lloyd fits from one start differ")
+    log("kmeans two plain fits from one start: centroids and assignments equal bit for bit")
+    km_mod.launches = 0
+    t0 = time.perf_counter()
+    fit = km.lloyd(x, init, iters, use_kernel=True)
+    torch.cuda.synchronize()
+    launches = km_mod.launches
+    rel = abs(float(fit.inertia) - float(fits[0].inertia)) / float(fits[0].inertia)
+    log(f"kmeans kernel Lloyd, {iters} iterations: {time.perf_counter() - t0:.2f} s, inertia "
+        f"{float(fit.inertia):.9g} ({rel:.3g} from the plain fit's), kmeans_assign launches "
+        f"{launches}")
+    if launches != iters + 1:
+        raise AssertionError(f"kmeans: kmeans_assign launched {launches} times, not {iters + 1}")
+    if rel > 1e-3:
+        raise AssertionError(f"kmeans: inertias differ by {rel:.3g} relative")
+    cents = fit.centroids
+    timed = {}
+    for what, pts in (("base", x), ("made on the card", None)):
+        if pts is None:  # base points drawn again, plus noise: the base's distribution
+            g = torch.Generator(device=dev).manual_seed(1)
+            pts = x[torch.randint(x.shape[0], (n_big,), generator=g, device=dev)]
+            pts += torch.randn(pts.shape, generator=g, device=dev) * 0.1 * x.std(0)
+        err, ties = compare_assign(f"kmeans_assign over {what}", pts, cents)
+        ms = time_ms(lambda: km_mod.kmeans_assign(pts, cents), 5)
+        plain_ms = time_ms(lambda: kops.kmeans_assign(pts, cents, impl="ref"), 2, 1)
+        bound = bound_entry(*assign_bound(pts, cents))
+        timed[what] = dict(n=pts.shape[0], err=err, near_ties=ties, ms=ms, plain_ms=plain_ms,
+                           bound=bound)
+        log(f"kmeans one pass over {pts.shape[0]} points ({what}) at the kernel fit's "
+            f"centroids: kernel vs plain ok (max abs err {err:.3g}; {ties} near-ties "
+            f"assigned differently); {ms:.3f} ms (plain {plain_ms:.3f} ms, bound "
+            f"{bound[0]:.3f} ms by {bound[1]})")
+        del pts
+    base_t, big = timed["base"], timed["made on the card"]
+    return kernel_entry(
+        "kmeans_assign", "kmeans_assign.cu", "src/repro/kernels/kmeans_assign.py:51", launches,
+        base_t["err"], base_t["ms"], base_t["plain_ms"], base_t["bound"],
+        {"x": list(x.shape), "centroids": list(cents.shape), "near_ties": base_t["near_ties"],
+         "at_n": {"n": big["n"], "ms": big["ms"], "plain_ms": big["plain_ms"],
+                  "bound_ms": big["bound"][0], "near_ties": big["near_ties"]}})
+
+
+def flat_phase(dev, queries, base, gtd, gti, k: int):
+    """``ops.l2_topk`` of the queries against the whole base: launches
+    counted, held against its plain version and against exact ground truth
+    (up to ties at the k-th place), timed. Returns the kernel's JSON entry."""
+    import numpy as np
+    import torch
+
+    from repro_torch import testing as rt
+    from repro_torch.kernels import l2_topk as l2_mod
+    from repro_torch.kernels import ops as kops
+
+    q = torch.as_tensor(queries, device=dev)
+    c = torch.as_tensor(base, device=dev)
+    ids = torch.arange(c.shape[0], dtype=torch.int32, device=dev)
+    l2_mod.flat_launches = 0
+    d_k, i_k = kops.l2_topk(q, c, ids, k)
+    torch.cuda.synchronize()
+    launches = l2_mod.flat_launches
+    require_launched("flat", {"l2_topk": launches}, ("l2_topk",))
+    err = compare_scan("l2_topk main-path inputs", q, c, ids, k, batched=False)
+    nq = q.shape[0]
+    gerr = rt.assert_topk_match(d_k, i_k, gtd[:nq], gti[:nq], rt.l2_atol(q, c, ids),
+                                what="l2_topk vs exact ground truth")
+    same = int((i_k.cpu().numpy() == gti[:nq]).all(1).sum())
+    splits = l2_mod.scan_splits(1, nq, c.shape[0], c.shape[1], k, dev)
+    log(f"flat   l2_topk of {nq} queries over {c.shape[0]} points, k {k} ({splits} candidate "
+        f"ranges): kernel vs plain ok (max abs err {err:.3g}); vs exact ground truth ok "
+        f"(max abs err {gerr:.3g}, {same} of {nq} rows equal id for id)")
+    ms = time_ms(lambda: l2_mod.l2_topk(q, c, ids, k), 5)
+    plain_ms = time_ms(lambda: kops.l2_topk(q, c, ids, k, impl="ref"), 1, 1)
+    return kernel_entry("l2_topk", "l2_topk.cu", "src/repro/kernels/l2_topk.py:69", launches,
+                        err, ms, plain_ms, bound_entry(*scan_bound(q[None], c[None], ids[None], k)),
+                        {"q": list(q.shape), "cands": list(c.shape), "k": k, "splits": splits,
+                         "rows_equal_to_ground_truth": same})
+
+
+def batched_phase(qp, qb, vec, ids, k: int):
+    """``ops.l2_topk_batched`` of the f32 path's dispatch buffer expanded to
+    [B, q_cap, d] (empty slots carry the sentinel row) against the store:
+    launches counted, held against its plain version (occupied and empty
+    slots apart, each under its own rows' tolerance) and, on the occupied
+    slots, against ``l2_topk_qbuf`` on the same batch; timed. Returns the
+    kernel's JSON entry."""
+    import torch
+
+    from repro_torch import testing as rt
+    from repro_torch.kernels import l2_topk as l2_mod
+    from repro_torch.kernels import ops as kops
+
+    q3 = qp[qb.long()]
+    l2_mod.batched_launches = 0
+    d_k, i_k = kops.l2_topk_batched(q3, vec, ids, k)
+    torch.cuda.synchronize()
+    launches = l2_mod.batched_launches
+    require_launched("batched", {"l2_topk_batched": launches}, ("l2_topk_batched",))
+    d_p, i_p = kops.l2_topk_batched(q3, vec, ids, k, impl="ref")
+    occ = rt.occupied(qp, qb)
+    err = rt.assert_topk_match(d_k[occ], i_k[occ], d_p[occ], i_p[occ],
+                               rt.l2_atol(q3[occ], vec, ids),
+                               what="l2_topk_batched main-path inputs, occupied slots")
+    if bool((~occ).any()):  # the sentinel rows, under their own (far larger) tolerance
+        rt.assert_topk_match(d_k[~occ], i_k[~occ], d_p[~occ], i_p[~occ],
+                             rt.l2_atol(q3[~occ], vec, ids),
+                             what="l2_topk_batched main-path inputs, empty slots")
+    del d_p, i_p
+    d_q, i_q = kops.l2_topk_qbuf(qp, qb, vec, ids, k)
+    qerr = rt.assert_topk_match(d_k[occ], i_k[occ], d_q[occ], i_q[occ],
+                                rt.qbuf_atol(qp, qb, vec, ids),
+                                what="l2_topk_batched vs l2_topk_qbuf")
+    equal = torch.equal(d_k[occ], d_q[occ]) and torch.equal(i_k[occ], i_q[occ])
+    log(f"batch  l2_topk_batched over {tuple(q3.shape)} x {tuple(vec.shape)}: kernel vs plain "
+        f"ok (occupied slots max abs err {err:.3g}); vs l2_topk_qbuf on the "
+        f"{int(occ.sum())} occupied slots ok (max abs err {qerr:.3g}, "
+        f"{'equal bit for bit' if equal else 'not bit-equal'})")
+    ms = time_ms(lambda: l2_mod.l2_topk_batched(q3, vec, ids, k), 10)
+    plain_ms = time_ms(lambda: kops.l2_topk_batched(q3, vec, ids, k, impl="ref"), 1, 1)
+    return kernel_entry("l2_topk_batched", "l2_topk.cu", "src/repro/kernels/l2_topk.py:146",
+                        launches, err, ms, plain_ms, bound_entry(*scan_bound(q3, vec, ids, k)),
+                        {"q": list(q3.shape), "cands": list(vec.shape), "k": k,
+                         "valid_candidates": int((ids >= 0).sum()),
+                         "equal_to_l2_topk_qbuf": equal})
 
 
 # ---------------------------------------------------------------- serving
@@ -320,6 +567,7 @@ def main(n_base: int = N_BASE, n_queries: int = N_QUERIES) -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA card",
               file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     from repro_torch import testing as rt
     from repro_torch.core import ground_truth as gt
     from repro_torch.core.metrics import recall_at_k
@@ -337,6 +585,10 @@ def main(n_base: int = N_BASE, n_queries: int = N_QUERIES) -> int:
                          check=True).stdout.strip()
     log(smi)
     dev = resolve_device("cuda")
+    # the plain versions are the oracles: their matmuls must run in full f32,
+    # not TF32 (resolve_device sets the same; stated here for the comparisons)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     log(f"device {torch.cuda.get_device_name(0)} | torch {torch.__version__} | "
         f"CUDA {torch.version.cuda} | python {sys.version.split()[0]}")
 
@@ -382,7 +634,7 @@ def main(n_base: int = N_BASE, n_queries: int = N_QUERIES) -> int:
     log(f"main   residual PQ codes lose {residual_distortion(eng):.4f} of the residuals' "
         f"energy (sum of squared reconstruction errors over the valid slots)")
     t0 = time.perf_counter()
-    _, gti = gt.exact_knn(ds.queries, ds.base, 100, device=dev)
+    gtd, gti = gt.exact_knn(ds.queries, ds.base, 100, device=dev)
     log(f"main   exact ground truth on the card in {time.perf_counter() - t0:.1f} s")
 
     # the residual_pq path runs at lira-ann-q's rerank 4 (rk = 400), then again
@@ -447,16 +699,12 @@ def main(n_base: int = N_BASE, n_queries: int = N_QUERIES) -> int:
     err = compare_l2("l2_topk_qbuf main-path inputs", qp, qb, vec, ids, k)
     ms = time_ms(lambda: l2_mod.l2_topk_qbuf(qp, qb, vec, ids, k), 10)
     plain_ms = time_ms(lambda: kops.l2_topk_qbuf(qp, qb, vec, ids, k, impl="ref"), 3, 1)
-    bound_ms, bound_by = bound_entry(*l2_bound(qp, qb, vec, ids, k))
-    kernels.append({"name": "l2_topk_qbuf", "route": "cuda",
-                    "source": "src/repro_torch/csrc/l2_topk_qbuf.cu",
-                    "replaces": "src/repro/kernels/l2_topk.py:247",
-                    "launches": f32_launches["l2_topk_qbuf"], "max_abs_err": err,
-                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                    "bound_by": bound_by, "library_ms": None,
-                    "shapes": {"q_pad": list(qp.shape), "qbuf": list(qb.shape),
-                               "cands": list(vec.shape), "k": k,
-                               "occupied_slots": int(rt.occupied(qp, qb).sum())}})
+    kernels.append(kernel_entry(
+        "l2_topk_qbuf", "l2_topk_qbuf.cu", "src/repro/kernels/l2_topk.py:247",
+        f32_launches["l2_topk_qbuf"], err, ms, plain_ms,
+        bound_entry(*l2_bound(qp, qb, vec, ids, k)),
+        {"q_pad": list(qp.shape), "qbuf": list(qb.shape), "cands": list(vec.shape), "k": k,
+         "occupied_slots": int(rt.occupied(qp, qb).sum())}))
     # one block scans one bucket: the heaviest bucket's share of the work
     # bounds what the other 131 SMs can hide
     work = rt.occupied(qp, qb).sum(1).double() * (ids >= 0).sum(1).double()
@@ -469,15 +717,11 @@ def main(n_base: int = N_BASE, n_queries: int = N_QUERIES) -> int:
     err = compare_dedup("dedup_topk main-path inputs", pd, pi, k)
     ms = time_ms(lambda: dd_mod.dedup_topk(pd, pi, k), 10)
     plain_ms = time_ms(lambda: kops.dedup_topk(pd, pi, k, impl="ref"), 3, 1)
-    bound_ms, bound_by = bound_entry(pd.numel() * 8 + pd.shape[0] * k * 8, 0.0, PEAK_OPS["float32"])
-    kernels.append({"name": "dedup_topk", "route": "cuda",
-                    "source": "src/repro_torch/csrc/dedup_topk.cu",
-                    "replaces": "src/repro/kernels/dedup_topk.py:137",
-                    "launches": f32_launches["dedup_topk"], "max_abs_err": err,
-                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                    "bound_by": bound_by, "library_ms": None,
-                    "shapes": {"pool": list(pd.shape), "k": k,
-                               "valid": int(((pi >= 0) & torch.isfinite(pd)).sum())}})
+    kernels.append(kernel_entry(
+        "dedup_topk", "dedup_topk.cu", "src/repro/kernels/dedup_topk.py:137",
+        f32_launches["dedup_topk"], err, ms, plain_ms,
+        bound_entry(pd.numel() * 8 + pd.shape[0] * k * 8, 0.0, PEAK_OPS["float32"]),
+        {"pool": list(pd.shape), "k": k, "valid": int(((pi >= 0) & torch.isfinite(pd)).sum())}))
     res_in, res_launches = inputs["residual_pq"]
     (lut, qb, codes, slots, rk), kw = res_in["pq_adc_topk_qbuf"]
     coff, qoff = kw["cand_off"], kw["q_off"]
@@ -486,16 +730,13 @@ def main(n_base: int = N_BASE, n_queries: int = N_QUERIES) -> int:
                                                    q_off=qoff), 10)
     plain_ms = time_ms(lambda: kops.pq_adc_topk_qbuf(lut, qb, codes, slots, rk, cand_off=coff,
                                                      q_off=qoff, impl="ref"), 3, 1)
-    bound_ms, bound_by = bound_entry(*adc_bound(lut, qb, codes, slots, rk, coff, qoff))
-    kernels.append({"name": "pq_adc_topk_qbuf", "route": "cuda",
-                    "source": "src/repro_torch/csrc/pq_adc_topk_qbuf.cu",
-                    "replaces": "src/repro/kernels/pq_adc.py:362",
-                    "launches": res_launches["pq_adc_topk_qbuf"], "max_abs_err": err,
-                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                    "bound_by": bound_by, "library_ms": None,
-                    "shapes": {"lut_pad": list(lut.shape), "qbuf": list(qb.shape),
-                               "codes": [*codes.shape, str(codes.dtype)], "k": rk,
-                               "occupied_slots": int(rt.occupied(lut, qb).sum())}})
+    kernels.append(kernel_entry(
+        "pq_adc_topk_qbuf", "pq_adc_topk_qbuf.cu", "src/repro/kernels/pq_adc.py:362",
+        res_launches["pq_adc_topk_qbuf"], err, ms, plain_ms,
+        bound_entry(*adc_bound(lut, qb, codes, slots, rk, coff, qoff)),
+        {"lut_pad": list(lut.shape), "qbuf": list(qb.shape),
+         "codes": [*codes.shape, str(codes.dtype)], "k": rk,
+         "occupied_slots": int(rt.occupied(lut, qb).sum())}))
     # one block takes one group of G slots of one bucket
     g = adc_mod.slots_per_block(lut, codes, rk)
     occ = rt.occupied(lut, qb)
@@ -506,10 +747,18 @@ def main(n_base: int = N_BASE, n_queries: int = N_QUERIES) -> int:
         f"max {int(work.max())}, mean over blocks with work "
         f"{float(work[work > 0].mean()):.0f}, heaviest block "
         f"{100 * float(work.max() / work.sum()):.2f}% of the total")
+
+    # 7-9. the build's k-means through the kernel, the flat and the batched scan
+    kernels.append(kmeans_phase(dev, ds.base, 10 * n_base))
+    kernels.append(flat_phase(dev, ds.queries[:BATCH], ds.base, gtd, gti, 100))
+    (qp, qb, vec, ids, k), _ = f32_in["l2_topk_qbuf"]
+    kernels.append(batched_phase(qp, qb, vec, ids, k))
+
     for kern in kernels:
         log(f"kernel {kern['name']}: {kern['ms']:.3f} ms (plain {kern['plain_ms']:.3f} ms, "
             f"bound {kern['bound_ms']:.3f} ms by {kern['bound_by']}), no single PyTorch call "
             f"computes the same function")
+    log(f"total  {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,10 @@
 ``repro/core/kmeans.py``.
 
 Distances use the ||x||² - 2x·c + ||c||² expansion so the inner loop is a
-matmul. ``lloyd`` takes its initial centroids as an argument, so a test can
-start the port and the JAX reference from the same centroids.
+matmul; with ``use_kernel`` the assignment pass is the fused kernel
+(``kernels/kmeans_assign.py``) on the card. ``lloyd`` takes its initial
+centroids as an argument, so a test can start the port and the JAX reference
+from the same centroids.
 """
 from __future__ import annotations
 
@@ -11,7 +13,7 @@ from typing import NamedTuple
 
 import torch
 
-_ASSIGN_BLOCK = 65536  # rows per assignment block: bounds the [rows, B] matrix
+from repro_torch.kernels import ops as kops
 
 
 class KMeansState(NamedTuple):
@@ -39,43 +41,54 @@ def plus_plus_init(x: torch.Tensor, n_clusters: int,
     return cents
 
 
-def assign_points(x: torch.Tensor, centroids: torch.Tensor):
-    """(assignment [N] int32, sq-distance-to-assigned [N] f32): a matmul plus
-    argmin, in row blocks. ``argmin`` returns the first minimum, as JAX's."""
-    assign = torch.empty(x.shape[0], dtype=torch.int32, device=x.device)
-    dmin = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
-    c2 = (centroids * centroids).sum(-1)[None, :]
-    for s in range(0, x.shape[0], _ASSIGN_BLOCK):
-        xb = x[s:s + _ASSIGN_BLOCK]
-        d2 = (xb * xb).sum(-1, keepdim=True) - 2.0 * xb @ centroids.T + c2
-        a = torch.argmin(d2, dim=-1)
-        assign[s:s + _ASSIGN_BLOCK] = a.to(torch.int32)
-        dmin[s:s + _ASSIGN_BLOCK] = torch.gather(d2, 1, a[:, None])[:, 0]
-    return assign, dmin
+def assign_points(x: torch.Tensor, centroids: torch.Tensor, *, use_kernel: bool = False):
+    """(assignment [N] int32, sq-distance-to-assigned [N] f32). The plain
+    matmul + argmin in row blocks (``argmin`` returns the first minimum, as
+    JAX's), or with ``use_kernel`` the fused kernel wherever ``x`` lies on the
+    card."""
+    return kops.kmeans_assign(x, centroids, impl=None if use_kernel else "ref")
 
 
-def lloyd(x: torch.Tensor, centroids: torch.Tensor, n_iters: int) -> KMeansState:
+def segment_sum(x: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
+    """Row sums of ``x`` [N, d] per segment id ``seg`` [N] int64 → [n, d],
+    the same bits on every run: an accumulating ``index_put_`` under PyTorch's
+    deterministic algorithms, which on CUDA sorts the ids and sums each
+    segment in row order (``index_add_`` there adds by float atomics, in an
+    order that changes from run to run). The switch is scoped to this call."""
+    out = torch.zeros((n, x.shape[1]), dtype=x.dtype, device=x.device)
+    was = torch.are_deterministic_algorithms_enabled()
+    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        out.index_put_((seg,), x, accumulate=True)
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn_only)
+    return out
+
+
+def lloyd(x: torch.Tensor, centroids: torch.Tensor, n_iters: int, *,
+          use_kernel: bool = False) -> KMeansState:
     """Lloyd's iterations from the given centroids; empty clusters keep their
-    old centroid."""
+    old centroid. The same inputs give the same bits on every run."""
     x = x.float()
     cents = centroids.float().clone()
     n_clusters = cents.shape[0]
     for _ in range(n_iters):
-        assign, _ = assign_points(x, cents)
+        assign, _ = assign_points(x, cents, use_kernel=use_kernel)
         a = assign.long()
-        sums = torch.zeros_like(cents).index_add_(0, a, x)
+        sums = segment_sum(x, a, n_clusters)
         counts = torch.bincount(a, minlength=n_clusters).float()
         cents = torch.where(counts[:, None] > 0,
                             sums / counts.clamp_min(1.0)[:, None], cents)
-    assign, d2 = assign_points(x, cents)
+    assign, d2 = assign_points(x, cents, use_kernel=use_kernel)
     return KMeansState(centroids=cents, assign=assign, inertia=d2.sum())
 
 
 def kmeans_fit(x: torch.Tensor, n_clusters: int, n_iters: int = 25, *,
-               generator: torch.Generator) -> KMeansState:
+               generator: torch.Generator, use_kernel: bool = False) -> KMeansState:
     """k-means++ seeding then Lloyd. x: [N, d] on the device of ``generator``."""
     x = x.float()
-    return lloyd(x, plus_plus_init(x, n_clusters, generator), n_iters)
+    return lloyd(x, plus_plus_init(x, n_clusters, generator), n_iters, use_kernel=use_kernel)
 
 
 def centroid_distances(q: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:

@@ -23,7 +23,7 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("l2_topk_qbuf", "dedup_topk", "pq_adc_topk_qbuf")
+SOURCES = ("l2_topk_qbuf", "dedup_topk", "pq_adc_topk_qbuf", "kmeans_assign", "l2_topk")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

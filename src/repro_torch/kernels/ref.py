@@ -15,6 +15,7 @@ from repro_torch.kernels._util import pad_dim
 
 PAD_ID = -1
 ID_SENTINEL = 2**30    # id sentinel: sorts after every real id
+_ASSIGN_BLOCK = 65536  # rows per block of the plain k-means assignment
 
 
 def smallest_k(x: torch.Tensor, k: int):
@@ -46,6 +47,24 @@ def l2_topk_batched_ref(q: torch.Tensor, cands: torch.Tensor, cand_ids: torch.Te
     out_d, pos = smallest_k(d2, k)
     out_i = torch.gather(ids[:, None, :].expand(-1, d2.shape[1], -1), 2, pos)
     return out_d, torch.where(torch.isfinite(out_d), out_i, PAD_ID)
+
+
+def kmeans_assign_ref(x: torch.Tensor, centroids: torch.Tensor):
+    """(argmin centroid [N] int32, its sq distance [N] f32) per point, by the
+    expansion ||x||² − 2x·c + ||c||² in f32: a matmul then an argmin (the
+    first minimum wins, as JAX's), over blocks of rows so the [rows, B]
+    distance matrix stays bounded."""
+    x, c = x.float(), centroids.float()
+    assign = torch.empty(x.shape[0], dtype=torch.int32, device=x.device)
+    dmin = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
+    c2 = (c * c).sum(-1)[None, :]
+    for s in range(0, x.shape[0], _ASSIGN_BLOCK):
+        xb = x[s:s + _ASSIGN_BLOCK]
+        d2 = (xb * xb).sum(-1, keepdim=True) - 2.0 * xb @ c.T + c2
+        a = torch.argmin(d2, dim=-1)
+        assign[s:s + _ASSIGN_BLOCK] = a.to(torch.int32)
+        dmin[s:s + _ASSIGN_BLOCK] = torch.gather(d2, 1, a[:, None])[:, 0]
+    return assign, dmin
 
 
 def l2_topk_qbuf_ref(q_pad: torch.Tensor, qbuf: torch.Tensor, cands: torch.Tensor,

@@ -12,7 +12,11 @@ integers the distances are exact and the ids must match element for element
 must be equal. The ADC scan only adds, in a fixed order, so the kernel must
 equal its plain version; against the JAX oracle, which adds the offsets in
 the other order, distances agree to rtol 1e-5, atol 1e-5·(the largest
-|LUT sum| + |q_off| + |cand_off|) (``adc_atol``).
+|LUT sum| + |q_off| + |cand_off|) (``adc_atol``). The k-means assignment's
+minimum distances agree to rtol 1e-5, atol 1e-5·(max ‖x‖² + max ‖c‖²), and
+an assignment may differ only at a near-tie: where the plain distance to the
+other side's centroid is within that tolerance of the plain minimum
+(``assert_assign_match``); with small-integer inputs both are exact.
 """
 from __future__ import annotations
 
@@ -43,6 +47,11 @@ def qbuf_atol(q_pad, qbuf, cands, cand_ids) -> float:
     return l2_atol(q_pad[qbuf[occupied(q_pad, qbuf)].long()], cands, cand_ids)
 
 
+def _tensor(a):
+    """Arrays (numpy or jax) as tensors; they are copied, as jax's are read-only."""
+    return a if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a))
+
+
 def assert_topk_match(d_a, i_a, d_b, i_b, atol: float, *, exact_ids: bool = False,
                       what: str = "top-k") -> float:
     """Hold the top-k (d_a, i_a) against the reference (d_b, i_b), arrays or
@@ -51,11 +60,8 @@ def assert_topk_match(d_a, i_a, d_b, i_b, atol: float, *, exact_ids: bool = Fals
     sets except among candidates tied within the tolerance at the k-th place
     (element for element with ``exact_ids``). Returns the largest absolute
     distance error."""
-    def tensor(a):  # arrays (numpy or jax) are copied: jax's are read-only
-        return a if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a))
-
-    d_a = tensor(d_a).float()
-    d_b, i_a, i_b = (tensor(a).to(d_a.device) for a in (d_b, i_a, i_b))
+    d_a = _tensor(d_a).float()
+    d_b, i_a, i_b = (_tensor(a).to(d_a.device) for a in (d_b, i_a, i_b))
     d_b = d_b.float()
     k = d_a.shape[-1]
     d_a, d_b, i_a, i_b = (t.reshape(-1, k) for t in (d_a, d_b, i_a, i_b))
@@ -238,3 +244,120 @@ def adc_atol(lut_pad, cand_off=None, q_off=None) -> float:
         if off is not None and torch.as_tensor(off).numel():
             top += float(torch.as_tensor(off).abs().max())
     return 1e-5 * max(top, 1.0)
+
+
+def kmeans_atol(x, centroids) -> float:
+    """1e-5 · (max ‖x‖² + max ‖c‖²), at least 1e-5."""
+    x, c = _tensor(x).float(), _tensor(centroids).float()
+    xn = float((x * x).sum(-1).max()) if x.shape[0] else 0.0
+    return 1e-5 * max(xn + float((c * c).sum(-1).max()), 1.0)
+
+
+def assert_assign_match(a_a, d_a, a_b, d_b, x, centroids, *, exact: bool = False,
+                        what: str = "kmeans_assign"):
+    """Hold the assignment (a_a, d_a) against the reference (a_b, d_b), arrays
+    or tensors of shape [N]: minimum distances within rtol 1e-5 /
+    ``kmeans_atol``; where the assignments differ, the reference's distance
+    to a_a's centroid within that tolerance of its own minimum (a near-tie).
+    With ``exact`` both must be equal. Returns (the largest absolute distance
+    error, the number of points assigned differently)."""
+    d_a = _tensor(d_a).float()
+    d_b, a_a, a_b = (_tensor(t).to(d_a.device) for t in (d_b, a_a, a_b))
+    d_b = d_b.float()
+    x, c = _tensor(x).to(d_a.device).float(), _tensor(centroids).to(d_a.device).float()
+    atol = kmeans_atol(x, c)
+    err = float((d_a - d_b).abs().max()) if d_a.numel() else 0.0
+    if not torch.allclose(d_a, d_b, rtol=RTOL, atol=atol):
+        raise AssertionError(f"{what}: min distances differ by up to {err} (atol {atol})")
+    rows = torch.nonzero(a_a.long() != a_b.long()).flatten()
+    if exact:
+        if rows.numel() or not torch.equal(d_a, d_b):
+            raise AssertionError(f"{what}: {rows.numel()} assignments or distances differ")
+        return err, 0
+    if rows.numel():
+        xr, cr = x[rows], c[a_a[rows].long()]
+        d_other = (xr * xr).sum(-1) - 2.0 * (xr * cr).sum(-1) + (cr * cr).sum(-1)
+        gap = d_other - d_b[rows]
+        if bool((gap > atol + RTOL * d_b[rows].abs()).any()):
+            raise AssertionError(f"{what}: {int((gap > atol).sum())} of {rows.numel()} "
+                                 f"differing assignments are not near-ties "
+                                 f"(largest gap {float(gap.max())}, atol {atol})")
+    return err, int(rows.numel())
+
+
+# "small" runs in the CPU tests; "main" is the build's width (d = 128, B = 1024
+# centroids) for the card. N is a multiple of no tile.
+KMEANS_WIDTHS = {"small": dict(n=301, b=20, d=16), "main": dict(n=5003, b=1024, d=128)}
+
+_KMEANS_CASES = {
+    "ragged N and B": lambda w: dict(b=w["b"] - 1),
+    "B=1": lambda w: dict(b=1),
+    "d not a multiple of 4": lambda w: dict(d=w["d"] - 3),
+    # small integers: exact distances; every odd centroid repeats the one
+    # before it, so the lower index must win
+    "duplicate centroids": lambda w: dict(integer=True),
+    "bf16": lambda w: dict(dtype="bfloat16"),
+}
+KMEANS_CASES = tuple(_KMEANS_CASES)
+
+
+def kmeans_case(case: str, *, width: str = "small", seed: int = 0):
+    """One ``kmeans_assign`` edge case: (x [N, d] f32, centroids [B, d] f32)
+    as numpy, the dtype's name, and whether the outputs must be equal."""
+    w = KMEANS_WIDTHS[width]
+    kw = {**w, "integer": False, "dtype": "float32", **_KMEANS_CASES[case](w)}
+    n, b, d = kw["n"], kw["b"], kw["d"]
+    rng = np.random.default_rng(seed)
+    if kw["integer"]:
+        x = rng.integers(-3, 4, (n, d)).astype(np.float32)
+        cents = rng.integers(-3, 4, (b, d)).astype(np.float32)
+        cents[1::2] = cents[::2][:b // 2]
+    else:
+        x = (rng.normal(size=(n, d)) * 3).astype(np.float32)
+        cents = (rng.normal(size=(b, d)) * 3).astype(np.float32)
+    return (x, cents), kw["dtype"], kw["integer"]
+
+
+# "small" runs in the CPU tests; "main" is the main path's width (d = 128,
+# k = 100) for the card. At both, C spans several of the kernel's candidate
+# ranges on the card (two tiles of 64 a range at least).
+L2_SCAN_WIDTHS = {"small": dict(b=3, q=10, c=300, d=16, k=7),
+                  "main": dict(b=4, q=40, c=1000, d=128, k=100)}
+
+_L2_SCAN_CASES = {
+    "holes+padding": lambda w: {},
+    "k>C": lambda w: dict(c=max(6, w["k"] // 3), pad_tail=2),
+    "all ids padding": lambda w: dict(hole_frac=1.0),
+    "bf16": lambda w: dict(dtype="bfloat16"),
+    # small integers: exact distances; the second half of each set repeats
+    # the first under other ids, so exact ties lie half a set apart, in other
+    # candidate ranges; d = 13 pads to the kernel's float4 reads
+    "exact ties across splits": lambda w: dict(integer=True, hole_frac=0.0, pad_tail=0, d=13),
+}
+L2_SCAN_CASES = tuple(_L2_SCAN_CASES)
+
+
+def l2_scan_case(case: str, *, width: str = "small", seed: int = 0):
+    """One edge case of the flat and batched scans: (q [B, Q, d] f32, cands
+    [B, C, d] f32, ids [B, C] int32) as numpy, k, the dtype's name, and
+    whether ids must match exactly. The last set has no valid id in every
+    case (the flat scan takes set 0); the rest have holes (``hole_frac``)
+    and a padding tail."""
+    w = L2_SCAN_WIDTHS[width]
+    kw = {**w, "hole_frac": 0.15, "pad_tail": w["c"] // 6, "integer": False,
+          "dtype": "float32", **_L2_SCAN_CASES[case](w)}
+    b, nq, c, d = (kw[n] for n in ("b", "q", "c", "d"))
+    rng = np.random.default_rng(seed)
+    if kw["integer"]:
+        cands = rng.integers(-3, 4, (b, c, d)).astype(np.float32)
+        cands[:, c // 2:2 * (c // 2)] = cands[:, :c // 2]
+        q = rng.integers(-3, 4, (b, nq, d)).astype(np.float32)
+    else:
+        cands = (rng.normal(size=(b, c, d)) * 3).astype(np.float32)
+        q = (rng.normal(size=(b, nq, d)) * 3).astype(np.float32)
+    ids = rng.permutation(b * c).reshape(b, c).astype(np.int32)
+    ids[rng.random((b, c)) < kw["hole_frac"]] = -1
+    if kw["pad_tail"]:
+        ids[:, -kw["pad_tail"]:] = -1
+    ids[-1] = -1
+    return (q, cands, ids), kw["k"], kw["dtype"], kw["integer"]

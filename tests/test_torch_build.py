@@ -1,6 +1,7 @@
 """The port's build path against the JAX reference, on the CPU, from the same
 numpy inputs: probing model (via ``params_from_jax``), optimizer arithmetic,
-Lloyd iterations from the same initial centroids, exact kNN, the padded
+Lloyd iterations from the same initial centroids (with the plain
+assignment and with the kernel's), exact kNN, the padded
 store, the redundancy plan, probe training from the same initial
 parameters, and the end-to-end build's recall@10 at the ``small_dataset``
 shape (``tests/conftest.py``).
@@ -25,6 +26,7 @@ from repro.core.redundancy import plan_redundancy as jax_plan_redundancy
 from repro.core.redundancy import replica_rows as jax_replica_rows
 from repro.core.train_probing import train_probing_model as jax_train_probing_model
 from repro.train import optimizer as jopt
+from repro_torch import testing as rt
 from repro_torch.core import ground_truth as tgt
 from repro_torch.core import kmeans as tkm
 from repro_torch.core import probing as tprobing
@@ -148,6 +150,48 @@ def test_lloyd_from_jax_init_matches_kmeans_fit(data):
     np.testing.assert_allclose(tst.centroids.numpy(), np.asarray(jst.centroids),
                                rtol=1e-5, atol=1e-4)
     np.testing.assert_allclose(float(tst.inertia), float(jst.inertia), rtol=1e-5)
+
+
+def test_assign_points_kernel_path_matches_jax(data):
+    """``use_kernel=True`` on CPU tensors takes the kernel's plain version; the
+    reference's kernel path on the CPU is its oracle."""
+    x, _, _, cents = data
+    ja, jd = jkm.assign_points(jnp.asarray(x), jnp.asarray(cents), use_kernel=True)
+    ta, td = tkm.assign_points(torch.from_numpy(x), torch.from_numpy(cents), use_kernel=True)
+    rt.assert_assign_match(ta, td, ja, jd, x, cents)
+    pa, pd = tkm.assign_points(torch.from_numpy(x), torch.from_numpy(cents))
+    assert torch.equal(pa, ta) and torch.equal(pd, td)
+
+
+def test_lloyd_kernel_path_matches_kmeans_fit(data):
+    x = data[0]
+    rng = jax.random.PRNGKey(7)
+    init = np.asarray(jkm.plus_plus_init(rng, jnp.asarray(x), 8))
+    jst = jkm.kmeans_fit(rng, jnp.asarray(x), n_clusters=8, n_iters=6, use_kernel=True)
+    tst = tkm.lloyd(torch.from_numpy(x), torch.from_numpy(init), 6, use_kernel=True)
+    ja, ta = np.asarray(jst.assign), tst.assign.numpy()
+    d2 = np.asarray(jkm.centroid_distances(jnp.asarray(x), jst.centroids))
+    srt = np.sort(d2, 1)
+    tie = srt[:, 1] - srt[:, 0] < 1e-3
+    np.testing.assert_array_equal(ta[~tie], ja[~tie])
+    np.testing.assert_allclose(tst.centroids.numpy(), np.asarray(jst.centroids),
+                               rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(float(tst.inertia), float(jst.inertia), rtol=1e-5)
+
+
+def test_lloyd_repeats_its_bits_and_segment_sum_is_index_add(data):
+    """Two fits from one start are equal; the deterministic segment sum gives
+    on the CPU the bits ``index_add_`` gave, and leaves the global
+    deterministic-algorithms switch as it found it."""
+    x, _, assign, _ = data
+    xt, init = torch.from_numpy(x), torch.from_numpy(x[:8].copy())
+    a, b = (tkm.lloyd(xt, init, 5) for _ in range(2))
+    assert torch.equal(a.centroids, b.centroids) and torch.equal(a.assign, b.assign)
+    seg = torch.from_numpy(assign).long()
+    before = torch.are_deterministic_algorithms_enabled()
+    got = tkm.segment_sum(xt, seg, 8)
+    assert torch.are_deterministic_algorithms_enabled() == before
+    assert torch.equal(got, torch.zeros(8, x.shape[1]).index_add_(0, seg, xt))
 
 
 def test_plus_plus_init_picks_data_points(data):

@@ -12,7 +12,9 @@ import pytest
 import torch
 
 from repro_torch import testing as rt
+from repro_torch.core import kmeans as km
 from repro_torch.kernels import dedup_topk as dd_mod
+from repro_torch.kernels import kmeans_assign as km_mod
 from repro_torch.kernels import l2_topk as l2_mod
 from repro_torch.kernels import pq_adc as adc_mod
 from repro_torch.kernels import ref as tref
@@ -118,3 +120,84 @@ def test_kernel_wrappers_reject_what_they_do_not_take(cuda_device):
         dd_mod.dedup_topk(d.double(), i, 5)
     with pytest.raises(ValueError):
         dd_mod.dedup_topk(d, i[:, :3], 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", rt.KMEANS_CASES)
+def test_kmeans_assign_kernel_matches_plain(cuda_device, case):
+    (x, c), dtype, exact = rt.kmeans_case(case, seed=12)
+    tdt = getattr(torch, dtype)
+    x, c = (torch.from_numpy(a).to(cuda_device).to(tdt) for a in (x, c))
+    before = km_mod.launches
+    ka, kd = km_mod.kmeans_assign(x, c)
+    torch.cuda.synchronize()
+    assert km_mod.launches == before + 1
+    assert ka.dtype == torch.int32 and kd.dtype == torch.float32 and ka.shape == (x.shape[0],)
+    pa, pd = tref.kmeans_assign_ref(x, c)
+    rt.assert_assign_match(ka, kd, pa, pd, x, c, exact=exact)
+
+
+def _scan_inputs(case, dev, seed):
+    (q, cands, ids), k, dtype, exact = rt.l2_scan_case(case, seed=seed)
+    tdt = getattr(torch, dtype)
+    q, cands = (torch.from_numpy(a).to(dev).to(tdt) for a in (q, cands))
+    return q, cands, torch.from_numpy(ids).to(dev), k, exact
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", rt.L2_SCAN_CASES)
+def test_l2_topk_kernel_matches_plain(cuda_device, case):
+    q, cands, ids, k, exact = _scan_inputs(case, cuda_device, 13)
+    q, cands, ids = q[0], cands[0], ids[0]
+    before = l2_mod.flat_launches
+    kd, ki = l2_mod.l2_topk(q, cands, ids, k)
+    torch.cuda.synchronize()
+    assert l2_mod.flat_launches == before + 1
+    pd, pi = tref.l2_topk_ref(q, cands, ids, k)
+    rt.assert_topk_match(kd, ki, pd, pi, rt.l2_atol(q, cands, ids), exact_ids=exact)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", rt.L2_SCAN_CASES)
+def test_l2_topk_batched_kernel_matches_plain(cuda_device, case):
+    q, cands, ids, k, exact = _scan_inputs(case, cuda_device, 14)
+    before = l2_mod.batched_launches
+    kd, ki = l2_mod.l2_topk_batched(q, cands, ids, k)
+    torch.cuda.synchronize()
+    assert l2_mod.batched_launches == before + 1
+    pd, pi = tref.l2_topk_batched_ref(q, cands, ids, k)
+    rt.assert_topk_match(kd, ki, pd, pi, rt.l2_atol(q.reshape(-1, q.shape[-1]), cands, ids),
+                         exact_ids=exact)
+
+
+@pytest.mark.cuda
+def test_scan_and_assign_wrappers_reject_what_they_do_not_take(cuda_device):
+    q, cands, ids, k, _ = _scan_inputs("holes+padding", cuda_device, 15)
+    with pytest.raises(TypeError):
+        l2_mod.l2_topk_batched(q, cands.bfloat16(), ids, k)
+    with pytest.raises(TypeError):
+        l2_mod.l2_topk(q[0].double(), cands[0].double(), ids[0], k)
+    with pytest.raises(TypeError):
+        l2_mod.l2_topk(q[0], cands[0], ids[0].long(), k)
+    with pytest.raises(ValueError):
+        l2_mod.l2_topk_batched(q[:, :, :3], cands, ids, k)
+    with pytest.raises(ValueError):
+        l2_mod.l2_topk(q[0], cands[0], ids[0, :5], k)
+    x = cands[0]
+    with pytest.raises(TypeError):
+        km_mod.kmeans_assign(x, x[:4].bfloat16())
+    with pytest.raises(ValueError):
+        km_mod.kmeans_assign(x, x[:4, :3])
+    with pytest.raises(ValueError):
+        km_mod.kmeans_assign(x, x[:0])
+
+
+@pytest.mark.cuda
+def test_lloyd_repeats_its_bits_on_the_card(cuda_device):
+    """The deterministic segment sum: two fits from one start are equal, with
+    the plain assignment and with the kernel's."""
+    (x, c), _, _ = rt.kmeans_case("ragged N and B", seed=16)
+    x, c = torch.from_numpy(x).to(cuda_device), torch.from_numpy(c).to(cuda_device)
+    for use_kernel in (False, True):
+        a, b = (km.lloyd(x, c, 4, use_kernel=use_kernel) for _ in range(2))
+        assert torch.equal(a.centroids, b.centroids) and torch.equal(a.assign, b.assign)

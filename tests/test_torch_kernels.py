@@ -1,7 +1,9 @@
 """The port's kernel modules against the JAX reference: the plain PyTorch
 versions of ``l2_topk_qbuf``, ``pq_adc_topk_qbuf`` and ``dedup_topk`` vs
 ``repro.kernels.ops`` with ``impl="ref"`` (and vs the numpy ``dedup_topk_np``)
-on the same numpy inputs.
+on the same numpy inputs; those of ``kmeans_assign``, ``l2_topk`` and
+``l2_topk_batched`` vs both ``impl="ref"`` and the JAX kernels themselves
+(``impl="interpret"``, which runs clean for these three).
 The edge cases and the comparison, with its tolerances, are
 ``repro_torch.testing``'s; ``test_torch_cuda.py`` holds the CUDA kernels
 against the same plain versions on the card with the same cases.
@@ -15,6 +17,7 @@ from repro.kernels import ops as jops
 from repro.kernels.dedup_topk import dedup_topk_np as jax_dedup_topk_np
 from repro_torch import testing as rt
 from repro_torch.kernels import dedup_topk as dd_mod
+from repro_torch.kernels import kmeans_assign as km_mod
 from repro_torch.kernels import l2_topk as l2_mod
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import pq_adc as adc_mod
@@ -54,6 +57,50 @@ def test_l2_topk_flat_and_batched_plain_match_jax_ref():
     td, ti = tref.l2_topk_batched_ref(torch.from_numpy(qb), torch.from_numpy(cands),
                                       torch.from_numpy(ids), 5)
     rt.assert_topk_match(td, ti, jd, ji, 1e-3)
+
+
+@pytest.mark.parametrize("jax_impl", ["ref", "interpret"])
+@pytest.mark.parametrize("case", rt.KMEANS_CASES)
+def test_kmeans_assign_plain_matches_jax(case, jax_impl):
+    (x, c), dtype, exact = rt.kmeans_case(case, seed=1)
+    ja, jd = jops.kmeans_assign(jnp.asarray(x, dtype), jnp.asarray(c, dtype), impl=jax_impl)
+    tdt = getattr(torch, dtype)
+    xt, ct = torch.from_numpy(x).to(tdt), torch.from_numpy(c).to(tdt)
+    ta, td = tops.kmeans_assign(xt, ct, impl="ref")
+    assert ta.shape == td.shape == (len(x),)
+    assert ta.dtype == torch.int32 and td.dtype == torch.float32
+    rt.assert_assign_match(ta, td, ja, jd, xt, ct, exact=exact)
+
+
+def _scan_case(case, seed):
+    (q, cands, ids), k, dtype, exact = rt.l2_scan_case(case, seed=seed)
+    tdt = getattr(torch, dtype)
+    jax_in = (jnp.asarray(q, dtype), jnp.asarray(cands, dtype), jnp.asarray(ids))
+    torch_in = (torch.from_numpy(q).to(tdt), torch.from_numpy(cands).to(tdt),
+                torch.from_numpy(ids))
+    return jax_in, torch_in, k, exact
+
+
+@pytest.mark.parametrize("jax_impl", ["ref", "interpret"])
+@pytest.mark.parametrize("case", rt.L2_SCAN_CASES)
+def test_l2_topk_plain_matches_jax(case, jax_impl):
+    (jq, jc, ji_), (q, cands, ids), k, exact = _scan_case(case, 1)
+    jd, ji = jops.l2_topk(jq[0], jc[0], ji_[0], k, impl=jax_impl)
+    td, ti = tops.l2_topk(q[0], cands[0], ids[0], k, impl="ref")
+    assert td.shape == ti.shape == (q.shape[1], k)
+    assert td.dtype == torch.float32 and ti.dtype == torch.int32
+    rt.assert_topk_match(td, ti, jd, ji, rt.l2_atol(q[0], cands[0], ids[0]), exact_ids=exact)
+
+
+@pytest.mark.parametrize("jax_impl", ["ref", "interpret"])
+@pytest.mark.parametrize("case", rt.L2_SCAN_CASES)
+def test_l2_topk_batched_plain_matches_jax(case, jax_impl):
+    (jq, jc, ji_), (q, cands, ids), k, exact = _scan_case(case, 2)
+    jd, ji = jops.l2_topk_batched(jq, jc, ji_, k, impl=jax_impl)
+    td, ti = tops.l2_topk_batched(q, cands, ids, k, impl="ref")
+    assert td.shape == ti.shape == (*q.shape[:2], k)
+    rt.assert_topk_match(td, ti, jd, ji, rt.l2_atol(q.reshape(-1, q.shape[-1]), cands, ids),
+                         exact_ids=exact)
 
 
 @pytest.mark.parametrize("case", rt.DEDUP_CASES)
@@ -161,6 +208,36 @@ def test_wrappers_take_plain_version_for_cpu_tensors():
         assert torch.equal(got, want)
     assert (l2_mod.launches, dd_mod.launches, adc_mod.launches) == (l2_before, dd_before,
                                                                     adc_before)
+
+
+def test_scan_and_assign_wrappers_take_plain_version_for_cpu_tensors():
+    """The flat, batched and k-means wrappers run their plain versions for CPU
+    tensors, through ops with impl="cuda" too, without counting a launch."""
+    before = (l2_mod.flat_launches, l2_mod.batched_launches, km_mod.launches)
+    q, cands, ids = (torch.from_numpy(a) for a in rt.l2_scan_case("holes+padding", seed=3)[0])
+    for got, want in zip((*l2_mod.l2_topk(q[0], cands[0], ids[0], 5),
+                          *tops.l2_topk(q[0], cands[0], ids[0], 5, impl="cuda")),
+                         2 * tref.l2_topk_ref(q[0], cands[0], ids[0], 5)):
+        assert torch.equal(got, want)
+    for got, want in zip((*l2_mod.l2_topk_batched(q, cands, ids, 5),
+                          *tops.l2_topk_batched(q, cands, ids, 5, impl="cuda")),
+                         2 * tref.l2_topk_batched_ref(q, cands, ids, 5)):
+        assert torch.equal(got, want)
+    x, c = (torch.from_numpy(a) for a in rt.kmeans_case("ragged N and B", seed=4)[0])
+    for got, want in zip((*km_mod.kmeans_assign(x, c), *tops.kmeans_assign(x, c, impl="cuda")),
+                         2 * tref.kmeans_assign_ref(x, c)):
+        assert torch.equal(got, want)
+    assert (l2_mod.flat_launches, l2_mod.batched_launches, km_mod.launches) == before
+
+
+def test_plain_assignment_blocks_give_the_whole_answer(monkeypatch):
+    """The plain assignment goes block of rows by block; blocks of 7 rows
+    give the answer of one block."""
+    x, c = (torch.from_numpy(a) for a in rt.kmeans_case("ragged N and B", seed=5)[0])
+    whole = tref.kmeans_assign_ref(x, c)
+    monkeypatch.setattr(tref, "_ASSIGN_BLOCK", 7)
+    for got, want in zip(tref.kmeans_assign_ref(x, c), whole):
+        assert torch.equal(got, want)
 
 
 def test_impl_resolution():
