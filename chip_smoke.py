@@ -12,8 +12,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                residual offsets, uint16 codes, empty slots, buckets and rows
                with nothing valid, ties across the flat scan's candidate
                ranges, ragged N and B, B = 1, d not a multiple of 4,
-               duplicate centroids) at the main paths' widths, under the same
-               rule the tests use;
+               duplicate centroids; the ADC cases also through the full, flat
+               and batched ADC, expanded through the dispatch buffer) at the
+               main paths' widths, under the same rule the tests use;
   4. main    — one engine at the lira-ann-q widths (dim 128, B = 1024
                partitions, k = 100, nprobe_max = 64, tier residual_pq with
                m = 16, ks = 256, rerank 4) over 1,000,000 base points and
@@ -46,7 +47,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                expanded to [1024, 128, 128] against the store, held against
                its plain version and, on the occupied slots, against
                l2_topk_qbuf; timed.
-Phases 7-9 zero their kernel's launch counter just before the path and read
+ 10. adc-full — a plain (non-residual) PQ of the 1M base (m = 16, ks = 256,
+               trained on 32,768 rows, every point encoded): pq_adc of the
+               first 1,000 queries' LUTs over the 1M codes, the full [1,000,
+               1M] ADC matrix, equal bit for bit to its plain version; timed;
+ 11. adc-flat — pq_adc_topk of the same LUTs over the same codes at k = 100,
+               the exhaustive PQ search: equal to its plain version
+               (distances bit for bit, ids too) and to a stable top-100 of
+               phase 10's matrix; recall@100 against exact ground truth is
+               reported, with no floor; timed;
+ 12. adc-batched — pq_adc_topk_batched of the residual_pq path's first
+               dispatch buffer expanded to [1024, 128, 16, 256] LUTs against
+               its codes, slots and offsets at rk = 400: equal to its plain
+               version on every slot and, on the occupied slots, to
+               pq_adc_topk_qbuf bit for bit; timed.
+Phases 7-12 zero their kernel's launch counter just before the path and read
 it just after. Every matmul runs in full f32 (TF32 off for matmul and cuDNN),
 so the plain versions are exact oracles.
 The line before the last is the kernels JSON; the last line is
@@ -117,6 +132,37 @@ def compare_adc(what, lut_pad, qbuf, codes, cand_ids, k, cand_off, q_off) -> flo
                                 what=what)
 
 
+def compare_adc_trio(what, lut_pad, qbuf, codes, cand_ids, k, cand_off, q_off) -> None:
+    """The full, flat and batched ADC kernels vs their plain versions on the
+    case expanded through qbuf (flat: buckets 0, with nothing valid, and 1),
+    all equal; the batched kernel also equals the qbuf kernel on the
+    occupied slots."""
+    import torch
+
+    from repro_torch import testing as rt
+    from repro_torch.kernels import ops as kops
+
+    lut = lut_pad[qbuf.long()]
+    kw = dict(cand_off=cand_off, q_off=q_off)
+    for b in (0, 1):
+        if not torch.equal(kops.pq_adc(lut[b], codes[b], impl="cuda"),
+                           kops.pq_adc(lut[b], codes[b], impl="ref")):
+            raise AssertionError(f"{what}: pq_adc differs from its plain version")
+        kb = {n: None if t is None else t[b] for n, t in kw.items()}
+        args = (lut[b], codes[b], cand_ids[b], k)
+        rt.assert_topk_match(*kops.pq_adc_topk(*args, impl="cuda", **kb),
+                             *kops.pq_adc_topk(*args, impl="ref", **kb), 0.0, exact_ids=True,
+                             what=f"{what}: pq_adc_topk, bucket {b}")
+    d_k, i_k = kops.pq_adc_topk_batched(lut, codes, cand_ids, k, impl="cuda", **kw)
+    rt.assert_topk_match(d_k, i_k, *kops.pq_adc_topk_batched(lut, codes, cand_ids, k, impl="ref",
+                                                             **kw),
+                         0.0, exact_ids=True, what=f"{what}: pq_adc_topk_batched")
+    d_q, i_q = kops.pq_adc_topk_qbuf(lut_pad, qbuf, codes, cand_ids, k, impl="cuda", **kw)
+    occ = rt.occupied(lut_pad, qbuf)
+    rt.assert_topk_match(d_k[occ], i_k[occ], d_q[occ], i_q[occ], 0.0, exact_ids=True,
+                         what=f"{what}: pq_adc_topk_batched vs pq_adc_topk_qbuf")
+
+
 def compare_dedup(what, dists, ids, k) -> float:
     """Kernel vs plain version: no arithmetic, so equal element for element."""
     from repro_torch import testing as rt
@@ -178,6 +224,8 @@ def edge_cases(dev) -> None:
         compare_adc(case, lut_pad, qbuf, codes, ids, k, coff, qoff)
         log(f"edges  pq_adc_topk_qbuf  {case}: ok, equal ({codes.dtype}, "
             f"S {qbuf.shape[1]}, N {codes.shape[1]}, k {k})")
+        compare_adc_trio(case, lut_pad, qbuf, codes, ids, k, coff, qoff)
+        log(f"edges  pq_adc / pq_adc_topk / pq_adc_topk_batched  {case}: ok, equal")
     for case in rt.KMEANS_CASES:
         (x, c), dtype, exact = rt.kmeans_case(case, width="main")
         x, c = (torch.from_numpy(a).to(dev).to(getattr(torch, dtype)) for a in (x, c))
@@ -478,6 +526,158 @@ def batched_phase(qp, qb, vec, ids, k: int):
                          "equal_to_l2_topk_qbuf": equal})
 
 
+# ---------------------------------------------------------------- the ADC trio
+
+PQ_TRAIN_ROWS = 32_768
+
+
+def adc_topk_bound(lut, codes, cand_ids, k, cand_off, q_off):
+    """Least time for a batched ADC top-k (the flat one is one bucket): each
+    input read once (every LUT row, every id and offset, the valid
+    candidates' codes), each output written once; m − 1 additions plus one
+    per offset for each (query row, valid candidate of its bucket), at the
+    f32 rate."""
+    m = codes.shape[-1]
+    valid = (cand_ids >= 0).sum(-1).double()
+    rows = lut.shape[-3]
+    nbytes = (lut.numel() * 4 + float(valid.sum()) * m * codes.element_size()
+              + cand_ids.numel() * 4
+              + sum(t.numel() * 4 for t in (cand_off, q_off) if t is not None)
+              + lut.shape[:-2].numel() * k * 8)
+    adds = m - 1 + (cand_off is not None) + (q_off is not None)
+    return nbytes, float(valid.sum()) * rows * adds, PEAK_OPS["float32"]
+
+
+def adc_full_phase(dev, queries, base):
+    """Train a plain PQ of the base, encode it, and take ``ops.pq_adc`` of
+    the queries' LUTs over every code: launches counted, equal bit for bit to
+    its plain version, timed. Returns the kernel's JSON entry and (the LUTs,
+    the codes, the matrix) for the next phase."""
+    import torch
+
+    from repro_torch.core import pq as pqmod
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import pq_adc as adc_mod
+
+    x = torch.as_tensor(base, device=dev)
+    t0 = time.perf_counter()
+    book = pqmod.train_pq(x[:PQ_TRAIN_ROWS], m=MAIN_BUILD["pq_m"], ks=MAIN_BUILD["pq_ks"],
+                          generator=torch.Generator(device=dev).manual_seed(0))
+    codes = pqmod.encode(book, x)
+    lut = pqmod.adc_lut(book, torch.as_tensor(queries, device=dev))
+    torch.cuda.synchronize()
+    del x
+    log(f"adc    PQ m {book.m}, ks {book.ks} trained on {PQ_TRAIN_ROWS} rows, "
+        f"{codes.shape[0]} points encoded ({codes.dtype}) in {time.perf_counter() - t0:.1f} s")
+    adc_mod.full_launches = 0
+    d_k = kops.pq_adc(lut, codes)
+    torch.cuda.synchronize()
+    launches = adc_mod.full_launches
+    require_launched("adc-full", {"pq_adc": launches}, ("pq_adc",))
+    d_p = kops.pq_adc(lut, codes, impl="ref")
+    err = float((d_k - d_p).abs().max())
+    if not torch.equal(d_k, d_p):
+        raise AssertionError(f"pq_adc: kernel and plain differ by up to {err}")
+    del d_p
+    log(f"adc    pq_adc of {tuple(lut.shape)} LUTs over {tuple(codes.shape)} codes -> "
+        f"{tuple(d_k.shape)}: equal bit for bit to its plain version")
+    ms = time_ms(lambda: adc_mod.pq_adc(lut, codes), 5)
+    plain_ms = time_ms(lambda: kops.pq_adc(lut, codes, impl="ref"), 1, 1)
+    nbytes = lut.numel() * 4 + codes.numel() * codes.element_size() + d_k.numel() * 4
+    bound = bound_entry(nbytes, float(d_k.numel()) * (codes.shape[1] - 1), PEAK_OPS["float32"])
+    entry = kernel_entry("pq_adc", "pq_adc.cu", "src/repro/kernels/pq_adc.py:62", launches, err,
+                         ms, plain_ms, bound,
+                         {"lut": list(lut.shape), "codes": [*codes.shape, str(codes.dtype)],
+                          "out": list(d_k.shape)})
+    return entry, (lut, codes, d_k)
+
+
+def adc_flat_phase(dev, lut, codes, full, gti, k: int):
+    """``ops.pq_adc_topk`` of the LUTs over every code (the exhaustive PQ
+    search): launches counted, equal to its plain version and to a stable
+    top-k of phase 10's matrix, recall@k against exact ground truth
+    reported; timed. Returns the kernel's JSON entry."""
+    import torch
+
+    from repro_torch import testing as rt
+    from repro_torch.core.metrics import recall_at_k
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import pq_adc as adc_mod
+    from repro_torch.kernels import ref as kref
+
+    ids = torch.arange(codes.shape[0], dtype=torch.int32, device=dev)
+    adc_mod.flat_launches = 0
+    d_k, i_k = kops.pq_adc_topk(lut, codes, ids, k)
+    torch.cuda.synchronize()
+    launches = adc_mod.flat_launches
+    require_launched("adc-flat", {"pq_adc_topk": launches}, ("pq_adc_topk",))
+    d_p, i_p = kops.pq_adc_topk(lut, codes, ids, k, impl="ref")
+    err = rt.assert_topk_match(d_k, i_k, d_p, i_p, 0.0, exact_ids=True,
+                               what="pq_adc_topk main-path inputs")
+    del d_p, i_p
+    rows = 100  # the stable top-k of the [Q, N] matrix, a hundred rows at a time
+    sd = torch.cat([kref.smallest_k(full[r:r + rows], k)[0] for r in range(0, len(full), rows)])
+    if not torch.equal(d_k, sd):
+        raise AssertionError("pq_adc_topk: distances differ from a stable top-k of pq_adc")
+    nq = lut.shape[0]
+    recall = recall_at_k(i_k.cpu().numpy(), gti[:nq], k)
+    splits = adc_mod.topk_splits(1, nq, codes.shape[0], codes.shape[1], lut.shape[2], k,
+                                 codes.element_size(), dev)
+    log(f"adc    pq_adc_topk of {nq} queries over {codes.shape[0]} codes, k {k} ({splits} "
+        f"candidate ranges): equal to its plain version (distances and ids) and, in "
+        f"distances, to a stable top-{k} of pq_adc; recall@{k} against exact ground truth "
+        f"{recall:.4f} (exhaustive PQ, no floor)")
+    ms = time_ms(lambda: adc_mod.pq_adc_topk(lut, codes, ids, k), 5)
+    plain_ms = time_ms(lambda: kops.pq_adc_topk(lut, codes, ids, k, impl="ref"), 1, 1)
+    return kernel_entry("pq_adc_topk", "pq_adc_topk.cu", "src/repro/kernels/pq_adc.py:131",
+                        launches, err, ms, plain_ms,
+                        bound_entry(*adc_topk_bound(lut[None], codes[None], ids[None], k,
+                                                    None, None)),
+                        {"lut": list(lut.shape), "codes": [*codes.shape, str(codes.dtype)],
+                         "k": k, "splits": splits, "recall_at_k": recall})
+
+
+def adc_batched_phase(lut_pad, qb, codes, slots, rk: int, coff, qoff):
+    """``ops.pq_adc_topk_batched`` of the residual_pq path's dispatch buffer
+    expanded to [B, q_cap, m, ks] LUTs (empty slots carry the zero row)
+    against its codes, slots and offsets: launches counted, equal to its
+    plain version on every slot and to ``pq_adc_topk_qbuf`` on the occupied
+    slots; timed. Returns the kernel's JSON entry."""
+    import torch
+
+    from repro_torch import testing as rt
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import pq_adc as adc_mod
+
+    lut = lut_pad[qb.long()]
+    kw = dict(cand_off=coff, q_off=qoff)
+    adc_mod.batched_launches = 0
+    d_k, i_k = kops.pq_adc_topk_batched(lut, codes, slots, rk, **kw)
+    torch.cuda.synchronize()
+    launches = adc_mod.batched_launches
+    require_launched("adc-batched", {"pq_adc_topk_batched": launches}, ("pq_adc_topk_batched",))
+    d_p, i_p = kops.pq_adc_topk_batched(lut, codes, slots, rk, impl="ref", **kw)
+    err = rt.assert_topk_match(d_k, i_k, d_p, i_p, 0.0, exact_ids=True,
+                               what="pq_adc_topk_batched main-path inputs, every slot")
+    del d_p, i_p
+    d_q, i_q = kops.pq_adc_topk_qbuf(lut_pad, qb, codes, slots, rk, **kw)
+    occ = rt.occupied(lut_pad, qb)
+    rt.assert_topk_match(d_k[occ], i_k[occ], d_q[occ], i_q[occ], 0.0, exact_ids=True,
+                         what="pq_adc_topk_batched vs pq_adc_topk_qbuf, occupied slots")
+    del d_q, i_q
+    log(f"adc    pq_adc_topk_batched over {tuple(lut.shape)} LUTs x {tuple(codes.shape)} codes, "
+        f"k {rk}: equal to its plain version on all {occ.numel()} slots and bit for bit to "
+        f"pq_adc_topk_qbuf on the {int(occ.sum())} occupied slots")
+    ms = time_ms(lambda: adc_mod.pq_adc_topk_batched(lut, codes, slots, rk, **kw), 10)
+    plain_ms = time_ms(lambda: kops.pq_adc_topk_batched(lut, codes, slots, rk, impl="ref", **kw),
+                       1, 1)
+    return kernel_entry("pq_adc_topk_batched", "pq_adc_topk.cu",
+                        "src/repro/kernels/pq_adc.py:233", launches, err, ms, plain_ms,
+                        bound_entry(*adc_topk_bound(lut, codes, slots, rk, coff, qoff)),
+                        {"lut": list(lut.shape), "codes": [*codes.shape, str(codes.dtype)],
+                         "k": rk, "valid_candidates": int((slots >= 0).sum())})
+
+
 # ---------------------------------------------------------------- serving
 
 def serve(eng, queries, tier, counters, n_base, what):
@@ -753,6 +953,15 @@ def main(n_base: int = N_BASE, n_queries: int = N_QUERIES) -> int:
     kernels.append(flat_phase(dev, ds.queries[:BATCH], ds.base, gtd, gti, 100))
     (qp, qb, vec, ids, k), _ = f32_in["l2_topk_qbuf"]
     kernels.append(batched_phase(qp, qb, vec, ids, k))
+
+    # 10-12. the ADC trio: the full matrix, the exhaustive PQ search, the
+    # residual_pq path's dispatch buffer expanded
+    entry, (lut_q, codes_q, full) = adc_full_phase(dev, ds.queries[:BATCH], ds.base)
+    kernels.append(entry)
+    kernels.append(adc_flat_phase(dev, lut_q, codes_q, full, gti, 100))
+    del lut_q, codes_q, full
+    (lut, qb, codes, slots, rk), kw = res_in["pq_adc_topk_qbuf"]
+    kernels.append(adc_batched_phase(lut, qb, codes, slots, rk, kw["cand_off"], kw["q_off"]))
 
     for kern in kernels:
         log(f"kernel {kern['name']}: {kern['ms']:.3f} ms (plain {kern['plain_ms']:.3f} ms, "

@@ -20,9 +20,10 @@
 //  * one candidate set with a few query chunks (the flat scan: 1,000 queries
 //    are 32 chunks, a quarter of the SMs) is split along C into `splits`
 //    ranges of whole tiles, so the grid fills the card; each block writes a
-//    partial list of (dist, position) per row, and a second kernel merges a
-//    row's partial lists, one warp per row, under the same (dist, position)
-//    key, so a lower position still wins an exact tie; with one split the
+//    partial list of (dist, position) per row, and a second kernel
+//    (topk_merge.cuh) merges a row's partial lists, one warp per row, under
+//    the same (dist, position) key, so a lower position still wins an exact
+//    tie; with one split the
 //    scan writes ids directly and there is no second pass;
 //  * the query chunks of one range are the fastest grid index, so blocks in
 //    flight together read the same candidate tiles and the card's 50 MB L2
@@ -34,10 +35,12 @@
 #include <stdint.h>
 
 #include "l2_scan.cuh"
+#include "topk_merge.cuh"
 
 namespace {
 
 using namespace l2scan;
+using topkmerge::merge_smem;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -60,40 +63,7 @@ l2_topk_scan_kernel(const T* __restrict__ q, int Q, const T* __restrict__ cands,
               splits == 1 ? ib : nullptr);
 }
 
-// One warp per (bucket, query) row: merge its `splits` partial lists
-// (pd, pc [B, splits, Q, k], positions < 0 unfilled) into od / oi [B, Q, k].
-__global__ void __launch_bounds__(kThreads)
-l2_topk_merge_kernel(const float* __restrict__ pd, const int* __restrict__ pc,
-                     const int* __restrict__ ids, int B, int Q, int C, int k, int splits,
-                     float* __restrict__ od, int* __restrict__ oi) {
-  extern __shared__ __align__(16) float smem[];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long row = (long long)blockIdx.x * kWarps + warp;  // b * Q + query
-  if (row >= (long long)B * Q) return;  // the whole warp leaves together
-  float* Ld = smem + warp * 2 * k;
-  int* Lc = reinterpret_cast<int*>(Ld + k);
-  const int b = (int)(row / Q), qi = (int)(row % Q);
-  int len = 0;
-  float td = CUDART_INF_F;
-  int tc = 0;
-  for (int s = 0; s < splits; ++s) {
-    const size_t base = (((size_t)b * splits + s) * Q + qi) * k;
-    for (int h = 0; h < k; h += 32) {
-      const int i = h + lane;
-      const int c = i < k ? pc[base + i] : -1;
-      const float dist = i < k ? pd[base + i] : CUDART_INF_F;
-      list_offer(Ld, Lc, len, k, td, tc, c >= 0, dist, c, lane);
-    }
-  }
-  const int* ib = ids + (size_t)b * C;
-  for (int i = lane; i < k; i += 32) {
-    od[row * k + i] = i < len ? Ld[i] : CUDART_INF_F;
-    oi[row * k + i] = i < len ? ib[Lc[i]] : -1;
-  }
-}
-
 size_t scan_smem(int d, int k) { return chunk_floats(d, k) * sizeof(float); }
-size_t merge_smem(int k) { return (size_t)kWarps * 2 * k * sizeof(float); }
 
 template <typename T>
 int launch(const void* q, int B, int Q, const void* cands, const void* ids, int C, int d,
@@ -116,14 +86,8 @@ int launch(const void* q, int B, int Q, const void* cands, const void* ids, int 
       (const T*)q, Q, (const T*)cands, (const int*)ids, C, d, k, splits, (float*)pd, (int*)pc);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(l2_topk_merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)msmem);
-  if (err != cudaSuccess) return (int)err;
-  const long long rows = (long long)B * Q;
-  l2_topk_merge_kernel<<<(unsigned)((rows + kWarps - 1) / kWarps), kThreads, msmem, st>>>(
-      (const float*)pd, (const int*)pc, (const int*)ids, B, Q, C, k, splits, (float*)od,
-      (int*)oi);
-  return (int)cudaGetLastError();
+  return (int)topkmerge::merge((const float*)pd, (const int*)pc, (const int*)ids, B, Q, C, k,
+                               splits, (float*)od, (int*)oi, st);
 }
 
 }  // namespace

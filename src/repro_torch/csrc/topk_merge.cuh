@@ -1,0 +1,67 @@
+// The merge of partial top-k lists, shared by the split scans (l2_topk.cu,
+// pq_adc_topk.cu): a scan split along its candidates writes, per row and
+// range, a list of (dist, position) pairs; this kernel merges a row's lists,
+// one warp per row, under the same (dist, position) key, so a lower position
+// still wins an exact tie, and writes the ids.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+#include "topk_list.cuh"
+
+namespace topkmerge {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+
+// Shared memory one merge block needs, in bytes.
+inline size_t merge_smem(int k) { return (size_t)kWarps * 2 * k * sizeof(float); }
+
+// One warp per (bucket, query) row: merge its `splits` partial lists
+// (pd, pc [B, splits, Q, k], positions < 0 unfilled) into od / oi [B, Q, k],
+// the id of position c being ids[b * C + c].
+__global__ void __launch_bounds__(kThreads)
+topk_merge_kernel(const float* __restrict__ pd, const int* __restrict__ pc,
+                  const int* __restrict__ ids, int B, int Q, int C, int k, int splits,
+                  float* __restrict__ od, int* __restrict__ oi) {
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long row = (long long)blockIdx.x * kWarps + warp;  // b * Q + query
+  if (row >= (long long)B * Q) return;  // the whole warp leaves together
+  float* Ld = smem + warp * 2 * k;
+  int* Lc = reinterpret_cast<int*>(Ld + k);
+  const int b = (int)(row / Q), qi = (int)(row % Q);
+  int len = 0;
+  float td = CUDART_INF_F;
+  int tc = 0;
+  for (int s = 0; s < splits; ++s) {
+    const size_t base = (((size_t)b * splits + s) * Q + qi) * k;
+    for (int h = 0; h < k; h += 32) {
+      const int i = h + lane;
+      const int c = i < k ? pc[base + i] : -1;
+      const float dist = i < k ? pd[base + i] : CUDART_INF_F;
+      list_offer(Ld, Lc, len, k, td, tc, c >= 0, dist, c, lane);
+    }
+  }
+  const int* ib = ids + (size_t)b * C;
+  for (int i = lane; i < k; i += 32) {
+    od[row * k + i] = i < len ? Ld[i] : CUDART_INF_F;
+    oi[row * k + i] = i < len ? ib[Lc[i]] : -1;
+  }
+}
+
+// Launch the merge on `stream`; returns a cudaError_t.
+inline cudaError_t merge(const float* pd, const int* pc, const int* ids, int B, int Q, int C,
+                         int k, int splits, float* od, int* oi, cudaStream_t stream) {
+  const size_t smem = merge_smem(k);
+  cudaError_t err = cudaFuncSetAttribute(topk_merge_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const long long rows = (long long)B * Q;
+  topk_merge_kernel<<<(unsigned)((rows + kWarps - 1) / kWarps), kThreads, smem, stream>>>(
+      pd, pc, ids, B, Q, C, k, splits, od, oi);
+  return cudaGetLastError();
+}
+
+}  // namespace topkmerge

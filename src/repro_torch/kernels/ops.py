@@ -83,6 +83,40 @@ def pq_adc_topk_qbuf(lut_pad, qbuf, codes, cand_ids, k: int, *, cand_off=None, q
                                  cand_off=cand_off, q_off=q_off)
 
 
+def pq_adc(lut, codes, *, impl: str | None = None):
+    """ADC distances [Q, N] from per-query LUTs [Q, m, ks] and PQ codes
+    [N, m] (uint8 / uint16 read as stored), summed over m in order."""
+    impl = resolve_impl(impl, codes.device)
+    if impl == "ref":
+        return _ref.pq_adc_ref(lut, codes)
+    return _adc.pq_adc(lut, codes)
+
+
+def pq_adc_topk(lut, codes, cand_ids, k: int, *, cand_off=None, q_off=None,
+                impl: str | None = None):
+    """Fused ADC scan + top-k shortlist of [Q, m, ks] LUTs over [N, m] codes
+    → ([Q, k] ascending dists inf-padded, [Q, k] ids -1-padded), with the
+    residual offsets ``cand_off`` [N] and ``q_off`` [Q] (None adds zero)."""
+    impl = resolve_impl(impl, codes.device)
+    cand_ids = cand_ids.to(torch.int32)
+    if impl == "ref":
+        return _ref.pq_adc_topk_ref(lut, codes, cand_ids, k, cand_off=cand_off, q_off=q_off)
+    return _adc.pq_adc_topk(lut, codes, cand_ids, k, cand_off=cand_off, q_off=q_off)
+
+
+def pq_adc_topk_batched(lut, codes, cand_ids, k: int, *, cand_off=None, q_off=None,
+                        impl: str | None = None):
+    """Grid-batched fused ADC shortlist: [B, Q, m, ks] LUT buckets vs
+    [B, N, m] code sets → ([B, Q, k], [B, Q, k]), with the residual offsets
+    ``cand_off`` [B, N] and ``q_off`` [B, Q] (None adds zero)."""
+    impl = resolve_impl(impl, codes.device)
+    cand_ids = cand_ids.to(torch.int32)
+    if impl == "ref":
+        return _ref.pq_adc_topk_batched_ref(lut, codes, cand_ids, k, cand_off=cand_off,
+                                            q_off=q_off)
+    return _adc.pq_adc_topk_batched(lut, codes, cand_ids, k, cand_off=cand_off, q_off=q_off)
+
+
 def dedup_topk(dists, ids, k: int, *, impl: str | None = None):
     """Replica-aware merge: collapse duplicate ids to their best distance,
     then exact top-k ordered by (dist, id)."""

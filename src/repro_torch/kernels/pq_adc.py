@@ -1,9 +1,11 @@
-"""Wrapper of the CUDA dispatch-buffer ADC scan ``csrc/pq_adc_topk_qbuf.cu``
-(counterpart of ``repro/kernels/pq_adc.py:pq_adc_topk_qbuf``).
+"""Wrappers of the CUDA ADC kernels: the dispatch-buffer scan
+``csrc/pq_adc_topk_qbuf.cu`` (counterpart of
+``repro/kernels/pq_adc.py:pq_adc_topk_qbuf``), the full matrix
+``csrc/pq_adc.cu`` (``pq_adc``) and the flat and batched scans
+``csrc/pq_adc_topk.cu`` (``pq_adc_topk``, ``pq_adc_topk_batched``).
 
-For a CPU tensor the wrapper runs the plain version
-(``ref.pq_adc_topk_qbuf_ref``); for a CUDA tensor it launches the kernel or
-raises — there is no fallback.
+For a CPU tensor each wrapper runs its plain version (``ref.py``); for a
+CUDA tensor it launches the kernel or raises — there is no fallback.
 """
 from __future__ import annotations
 
@@ -114,4 +116,189 @@ def pq_adc_topk_qbuf(lut_pad: torch.Tensor, qbuf: torch.Tensor, codes: torch.Ten
                           f"{lib.pq_adc_topk_qbuf_smem_bytes(m, ks, k, codes.element_size())} "
                           f"B of shared memory per block)")
     launches += 1
+    return od, oi
+
+
+# ---------------------------------------------------------------- full, flat and batched
+# ``csrc/pq_adc.cu`` (counterpart of ``repro/kernels/pq_adc.py:pq_adc``) and
+# ``csrc/pq_adc_topk.cu`` (``pq_adc_topk``, ``pq_adc_topk_batched``); each
+# entry point counts its own launches
+
+full_launches = 0
+flat_launches = 0
+batched_launches = 0
+
+_FULL = {torch.uint8: "pq_adc_u8", torch.uint16: "pq_adc_u16"}
+_TOPK = {torch.uint8: "pq_adc_topk_u8", torch.uint16: "pq_adc_topk_u16"}
+
+
+def _full_lib():
+    lib = _build.load("pq_adc")
+    if not getattr(lib, "_typed", False):
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        for fn in _FULL.values():
+            f = getattr(lib, fn)
+            f.argtypes = [ptr, i32, i32, i32, ptr, i32, ptr, ptr]
+            f.restype = i32
+        lib.pq_adc_smem_bytes.argtypes = [i32, i32]
+        lib.pq_adc_smem_bytes.restype = ctypes.c_longlong
+        lib._typed = True
+    return lib
+
+
+def _topk_lib():
+    lib = _build.load("pq_adc_topk")
+    if not getattr(lib, "_typed", False):
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        for fn in _TOPK.values():
+            f = getattr(lib, fn)
+            f.argtypes = [ptr, i32, i32, i32, i32, ptr, ptr, ptr, ptr, i32, i32, i32,
+                          ptr, ptr, ptr, ptr, ptr]
+            f.restype = i32
+        lib.pq_adc_topk_smem_bytes.argtypes = [i32, i32, i32, i32]
+        lib.pq_adc_topk_smem_bytes.restype = ctypes.c_longlong
+        lib.pq_adc_topk_splits.argtypes = [i32] * 7
+        lib.pq_adc_topk_splits.restype = i32
+        lib._typed = True
+    return lib
+
+
+def topk_splits(b: int, q: int, n: int, m: int, ks: int, k: int, code_size: int,
+                device) -> int:
+    """Ranges of whole 256-candidate tiles the ADC top-k kernel splits each of
+    b code sets of n rows into for q query rows each, on ``device``
+    (``pq_adc_topk_splits`` in ``csrc/pq_adc_topk.cu``)."""
+    with torch.cuda.device(device):
+        return _topk_lib().pq_adc_topk_splits(b, q, n, m, ks, k, code_size)
+
+
+def _check_codes(what: str, lut: torch.Tensor, codes: torch.Tensor, smem_bytes) -> None:
+    """Device and dtype checks shared by the three entry points;
+    ``smem_bytes(code_size)`` is the kernel's shared memory per block."""
+    if codes.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {codes.device}")
+    if lut.dtype != torch.float32:
+        raise TypeError(f"{what}: lut is {lut.dtype}, not float32")
+    if codes.dtype == torch.int32:  # ks > 65,536 (core/pq.code_dtype): no LUT row fits
+        raise RuntimeError(f"{what}: int32 codes (ks={lut.shape[-1]}) would need "
+                           f"{smem_bytes(4)} B of shared memory per block")
+    if codes.dtype not in _FULL:
+        raise TypeError(f"{what}: code dtype {codes.dtype} not in {list(_FULL)}")
+    if lut.device != codes.device:
+        raise ValueError(f"{what}: lut on {lut.device}, codes on {codes.device}")
+
+
+def pq_adc(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """The full ADC matrix dist[q, n] = Σ_m lut[q, m, codes[n, m]], summed
+    over m in order: lut [Q, m, ks] f32 × codes [N, m] uint8 or uint16 (read
+    in that dtype) → [Q, N] f32."""
+    global full_launches
+    if codes.device.type == "cpu":
+        return _ref.pq_adc_ref(lut, codes)
+    _check_codes("pq_adc", lut, codes,
+                 lambda size: _full_lib().pq_adc_smem_bytes(lut.shape[-2], lut.shape[-1]))
+    if lut.ndim != 3 or codes.ndim != 2 or lut.shape[1] != codes.shape[1]:
+        raise ValueError(f"pq_adc: lut {tuple(lut.shape)} vs codes {tuple(codes.shape)}")
+    q, m, ks = lut.shape
+    n = codes.shape[0]
+    lut, codes = lut.contiguous(), codes.contiguous()
+    lib = _full_lib()
+    out = torch.empty((q, n), dtype=torch.float32, device=codes.device)
+    with torch.cuda.device(codes.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, _FULL[codes.dtype])(lut.data_ptr(), q, m, ks, codes.data_ptr(), n,
+                                               out.data_ptr(), stream)
+    if err:
+        _build.check(err, f"pq_adc (m={m}, ks={ks}: {lib.pq_adc_smem_bytes(m, ks)} B of "
+                          f"shared memory per block, Q={q})")
+    full_launches += 1
+    return out
+
+
+def _topk(lut, codes, cand_ids, k: int, cand_off, q_off, what: str):
+    """Launch the ADC top-k over lut [B, Q, m, ks] × codes [B, N, m] (checked
+    here)."""
+    _check_codes(what, lut, codes, lambda size: _topk_lib().pq_adc_topk_smem_bytes(
+        lut.shape[-2], lut.shape[-1], k, size))
+    if cand_ids.dtype != torch.int32:
+        raise TypeError(f"{what}: cand_ids must be int32")
+    offsets = {"cand_off": cand_off, "q_off": q_off}
+    for name, t in offsets.items():
+        if t is not None and t.dtype != torch.float32:
+            raise TypeError(f"{what}: {name} is {t.dtype}, not float32")
+    b, n, m = codes.shape
+    if lut.shape[0] != b or lut.shape[2] != m or tuple(cand_ids.shape) != (b, n):
+        raise ValueError(f"{what}: lut {tuple(lut.shape)} / ids {tuple(cand_ids.shape)} vs "
+                         f"codes {tuple(codes.shape)}")
+    q, ks = lut.shape[1], lut.shape[3]
+    want = {"cand_off": (b, n), "q_off": (b, q)}
+    for name, t in offsets.items():
+        if t is not None and tuple(t.shape) != want[name]:
+            raise ValueError(f"{what}: {name} {tuple(t.shape)}, want {want[name]}")
+    for name, t in (("cand_ids", cand_ids), *offsets.items()):
+        if t is not None and t.device != codes.device:
+            raise ValueError(f"{what}: {name} on {t.device}, codes on {codes.device}")
+    if k < 1:
+        raise ValueError(f"{what}: k={k}")
+    lut, codes, cand_ids = lut.contiguous(), codes.contiguous(), cand_ids.contiguous()
+    cand_off, q_off = (None if t is None else t.contiguous() for t in (cand_off, q_off))
+    lib = _topk_lib()
+    splits = topk_splits(b, q, n, m, ks, k, codes.element_size(), codes.device)
+    od = torch.empty((b, q, k), dtype=torch.float32, device=codes.device)
+    oi = torch.empty((b, q, k), dtype=torch.int32, device=codes.device)
+    pd = pc = None
+    if splits > 1:  # the partial lists of each candidate range
+        pd = torch.empty((b, splits, q, k), dtype=torch.float32, device=codes.device)
+        pc = torch.empty((b, splits, q, k), dtype=torch.int32, device=codes.device)
+    with torch.cuda.device(codes.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, _TOPK[codes.dtype])(
+            lut.data_ptr(), b, q, m, ks, codes.data_ptr(), cand_ids.data_ptr(),
+            None if cand_off is None else cand_off.data_ptr(),
+            None if q_off is None else q_off.data_ptr(), n, k, splits,
+            None if pd is None else pd.data_ptr(), None if pc is None else pc.data_ptr(),
+            od.data_ptr(), oi.data_ptr(), stream)
+    if err:  # e.g. one row's LUT and list exceed the shared memory of a block
+        _build.check(err, f"{what} (m={m}, ks={ks}, k={k}: "
+                          f"{lib.pq_adc_topk_smem_bytes(m, ks, k, codes.element_size())} B of "
+                          f"shared memory per block, {splits} splits)")
+    return od, oi
+
+
+def pq_adc_topk(lut: torch.Tensor, codes: torch.Tensor, cand_ids: torch.Tensor, k: int, *,
+                cand_off=None, q_off=None):
+    """Fused ADC scan and top-k of one query set over one code set.
+
+    lut [Q, m, ks] f32, codes [N, m] uint8 or uint16, cand_ids [N] int32
+    (< 0 = padding), cand_off [N] / q_off [Q] f32 or None (none added) →
+    ([Q, k] f32 ascending dists, [Q, k] int32 ids), inf / -1 where fewer
+    than k valid candidates exist; an earlier candidate wins an exact tie.
+    """
+    global flat_launches
+    if codes.device.type == "cpu":
+        return _ref.pq_adc_topk_ref(lut, codes, cand_ids, k, cand_off=cand_off, q_off=q_off)
+    if lut.ndim != 3 or codes.ndim != 2 or cand_ids.ndim != 1:
+        raise ValueError(f"pq_adc_topk: lut {tuple(lut.shape)}, codes {tuple(codes.shape)}, "
+                         f"ids {tuple(cand_ids.shape)}")
+    od, oi = _topk(lut[None], codes[None], cand_ids[None], k,
+                   None if cand_off is None else cand_off[None],
+                   None if q_off is None else q_off[None], "pq_adc_topk")
+    flat_launches += 1
+    return od[0], oi[0]
+
+
+def pq_adc_topk_batched(lut: torch.Tensor, codes: torch.Tensor, cand_ids: torch.Tensor,
+                        k: int, *, cand_off=None, q_off=None):
+    """``pq_adc_topk`` for each bucket b: lut [B, Q, m, ks] against codes
+    [B, N, m] with cand_ids [B, N], cand_off [B, N] and q_off [B, Q] →
+    ([B, Q, k], [B, Q, k]). Every query row is scanned, the last one too."""
+    global batched_launches
+    if codes.device.type == "cpu":
+        return _ref.pq_adc_topk_batched_ref(lut, codes, cand_ids, k, cand_off=cand_off,
+                                            q_off=q_off)
+    if lut.ndim != 4 or codes.ndim != 3:
+        raise ValueError(f"pq_adc_topk_batched: lut {tuple(lut.shape)}, codes "
+                         f"{tuple(codes.shape)}")
+    od, oi = _topk(lut, codes, cand_ids, k, cand_off, q_off, "pq_adc_topk_batched")
+    batched_launches += 1
     return od, oi

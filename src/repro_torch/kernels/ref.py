@@ -144,21 +144,26 @@ def pq_adc_topk_qbuf_ref(lut_pad: torch.Tensor, qbuf: torch.Tensor, codes: torch
                          cand_ids: torch.Tensor, k: int, cand_off=None, q_off=None):
     """Oracle for the dispatch-buffer ADC scan: ``lut_pad`` [R, m, ks] rows
     gathered through ``qbuf`` [B, S] against ``codes`` [B, N, m]. Buckets go
-    in chunks, so the ``[B, S, m, ks]`` gather and the ``[B, S, N]``
-    distances are never whole."""
+    in chunks, and a bucket too big for one chunk in chunks of slots, so the
+    ``[B, S, m, ks]`` gather and the ``[B, S, N]`` distances are never whole
+    (the flat form over 1M codes is one bucket of 1,000 slots)."""
     b, s = qbuf.shape
     n = codes.shape[1]
-    step = max(1, _ADC_CHUNK // max(1, s * n, s * lut_pad[0].numel()))
+    per_slot = max(1, n, lut_pad[0].numel())
+    s_step = max(1, min(s, _ADC_CHUNK // per_slot))   # slots, when one bucket is too big
+    b_step = max(1, _ADC_CHUNK // (s * per_slot)) if s else 1
     out_d = torch.empty((b, s, k), dtype=torch.float32, device=lut_pad.device)
     out_i = torch.empty((b, s, k), dtype=torch.int32, device=lut_pad.device)
-    for b0 in range(0, b, step):
-        sl = slice(b0, b0 + step)
-        d = _adc_sum(lut_pad[qbuf[sl].long()], codes[sl])
-        if q_off is not None:
-            d = d + q_off[sl].float()[:, :, None]
-        if cand_off is not None:
-            d = d + cand_off[sl].float()[:, None, :]
-        out_d[sl], out_i[sl] = _adc_topk(d, cand_ids[sl], k)
+    for b0 in range(0, b, b_step):
+        bs = slice(b0, b0 + b_step)
+        for s0 in range(0, s, s_step):
+            ss = slice(s0, s0 + s_step)
+            d = _adc_sum(lut_pad[qbuf[bs, ss].long()], codes[bs])
+            if q_off is not None:
+                d = d + q_off[bs, ss].float()[:, :, None]
+            if cand_off is not None:
+                d = d + cand_off[bs].float()[:, None, :]
+            out_d[bs, ss], out_i[bs, ss] = _adc_topk(d, cand_ids[bs], k)
     return out_d, out_i
 
 

@@ -196,12 +196,17 @@ _ADC_CASES = {
     "uint16 codes": lambda w: dict(ks=512, offsets=True),
     # 40 occupied slots in a bucket span several of the kernel's slot groups
     "more slots than one group": lambda w: dict(s=40, empty_frac=0.0, offsets=True),
+    # exact distances; the second half of each set repeats the first under
+    # other ids, so exact ties lie half a set apart, in other candidate
+    # ranges of the flat scan (eight tiles of 256)
+    "exact ties across ranges": lambda w: dict(integer=True, hole_frac=0.0, pad_tail=0,
+                                               n=2048, dup="halves"),
 }
 ADC_CASES = tuple(_ADC_CASES)
 
 
 def adc_case(case: str, *, width: str = "small", seed: int = 0):
-    """One ``pq_adc_topk_qbuf`` edge case: (lut_pad [R, m, ks] f32, qbuf [B, S]
+    """One ADC edge case: (lut_pad [R, m, ks] f32, qbuf [B, S]
     int32, codes [B, N, m] uint8 or uint16, ids [B, N] int32, cand_off [B, N]
     f32 or None, q_off [B, S] f32 or None) as numpy, k, and whether ids must
     match exactly. The last LUT row is the empty slot's zero row. In every
@@ -209,7 +214,7 @@ def adc_case(case: str, *, width: str = "small", seed: int = 0):
     slot; the rest have holes, a padding tail and empty slots."""
     w = ADC_WIDTHS[width]
     kw = {**w, "hole_frac": 0.15, "pad_tail": w["n"] // 6, "empty_frac": 0.3,
-          "integer": False, "offsets": False, **_ADC_CASES[case](w)}
+          "integer": False, "offsets": False, "dup": "pairs", **_ADC_CASES[case](w)}
     b, s, n, m, ks, n_rows = (kw[x] for x in ("b", "s", "n", "m", "ks", "n_rows"))
     rng = np.random.default_rng(seed)
     if kw["integer"]:
@@ -218,8 +223,10 @@ def adc_case(case: str, *, width: str = "small", seed: int = 0):
         lut = (rng.random((n_rows, m, ks)) * 10).astype(np.float32)
     lut_pad = np.concatenate([lut, np.zeros((1, m, ks), np.float32)])
     codes = rng.integers(0, ks, (b, n, m)).astype(np.uint8 if ks <= 256 else np.uint16)
-    if kw["integer"]:
+    if kw["integer"] and kw["dup"] == "pairs":
         codes[:, 1::2] = codes[:, ::2][:, :n // 2]   # duplicate rows, distinct ids
+    elif kw["integer"]:
+        codes[:, n // 2:2 * (n // 2)] = codes[:, :n // 2]
     ids = rng.permutation(b * n).reshape(b, n).astype(np.int32)
     ids[rng.random((b, n)) < kw["hole_frac"]] = -1
     if kw["pad_tail"]:

@@ -71,7 +71,9 @@ def _adc_inputs(case, dev, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", rt.ADC_CASES)
 def test_pq_adc_topk_qbuf_kernel_equals_plain(cuda_device, case):
-    """The kernel adds in the plain version's order: distances and ids equal."""
+    """The kernel adds in the plain version's order: distances and ids equal.
+    The plain version is fixed, so this also holds the kernel on the shared
+    body (csrc/adc_scan.cuh) to the bits it gave before."""
     args, offs, k = _adc_inputs(case, cuda_device, 10)
     before = adc_mod.launches
     kd, ki = adc_mod.pq_adc_topk_qbuf(*args, k, **offs)
@@ -201,3 +203,116 @@ def test_lloyd_repeats_its_bits_on_the_card(cuda_device):
     for use_kernel in (False, True):
         a, b = (km.lloyd(x, c, 4, use_kernel=use_kernel) for _ in range(2))
         assert torch.equal(a.centroids, b.centroids) and torch.equal(a.assign, b.assign)
+
+
+def _expanded_inputs(case, dev, seed):
+    """An ADC case expanded through qbuf, on ``dev``: (lut [B, S, m, ks],
+    codes, ids), the offsets, k, and the dispatch-buffer form."""
+    arrays, k, _ = rt.adc_case(case, seed=seed)
+    lut_pad, qbuf, codes, ids, coff, qoff = (None if a is None else torch.from_numpy(a).to(dev)
+                                             for a in arrays)
+    return ((lut_pad[qbuf.long()], codes, ids), dict(cand_off=coff, q_off=qoff), k,
+            [lut_pad, qbuf, codes, ids])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", rt.ADC_CASES)
+def test_pq_adc_kernel_equals_plain(cuda_device, case):
+    """Additions only, in m order: the full matrix equals the plain one."""
+    (lut, codes, _), _, _, _ = _expanded_inputs(case, cuda_device, 30)
+    for b in (0, 1):
+        before = adc_mod.full_launches
+        got = adc_mod.pq_adc(lut[b], codes[b])
+        torch.cuda.synchronize()
+        assert adc_mod.full_launches == before + 1
+        assert torch.equal(got, tref.pq_adc_ref(lut[b], codes[b]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", rt.ADC_CASES)
+def test_pq_adc_topk_kernel_equals_plain(cuda_device, case):
+    """The flat scan, split into candidate ranges and merged, equals the
+    plain version: distances and ids (ties to the lower position)."""
+    (lut, codes, ids), offs, k, _ = _expanded_inputs(case, cuda_device, 31)
+    for b in (0, 1):
+        ob = {n: None if t is None else t[b] for n, t in offs.items()}
+        before = adc_mod.flat_launches
+        kd, ki = adc_mod.pq_adc_topk(lut[b], codes[b], ids[b], k, **ob)
+        torch.cuda.synchronize()
+        assert adc_mod.flat_launches == before + 1
+        pd, pi = tref.pq_adc_topk_ref(lut[b], codes[b], ids[b], k, **ob)
+        assert torch.equal(kd, pd) and torch.equal(ki, pi)
+
+
+@pytest.mark.cuda
+def test_pq_adc_topk_ties_across_ranges_go_to_the_lower_position(cuda_device):
+    (lut, codes, ids), _, k, _ = _expanded_inputs("exact ties across ranges", cuda_device, 32)
+    lut, codes, ids = lut[1], codes[1], ids[1]
+    splits = adc_mod.topk_splits(1, lut.shape[0], codes.shape[0], codes.shape[1], lut.shape[2],
+                                 k, codes.element_size(), cuda_device)
+    assert splits > 1  # the tie partners half a set apart lie in other ranges
+    kd, ki = adc_mod.pq_adc_topk(lut, codes, ids, k)
+    pd, pi = tref.pq_adc_topk_ref(lut, codes, ids, k)
+    assert torch.equal(kd, pd) and torch.equal(ki, pi)
+
+
+@pytest.mark.cuda
+def test_pq_adc_topk_equals_stable_topk_of_pq_adc(cuda_device):
+    (lut, codes, _), _, k, _ = _expanded_inputs("exact ties across ranges", cuda_device, 33)
+    lut, codes = lut[1], codes[1]
+    ids = torch.arange(codes.shape[0], dtype=torch.int32, device=cuda_device)
+    kd, ki = adc_mod.pq_adc_topk(lut, codes, ids, k)
+    sd, si = tref.smallest_k(adc_mod.pq_adc(lut, codes), k)
+    assert torch.equal(kd, sd) and torch.equal(ki, si.to(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", rt.ADC_CASES)
+def test_pq_adc_topk_batched_kernel_equals_plain_and_qbuf(cuda_device, case):
+    """Every row is scanned (the last row of the last bucket too: an identity
+    map must not take it for the dispatch buffer's empty slot); on the
+    occupied slots the batched kernel equals the qbuf kernel bit for bit."""
+    (lut, codes, ids), offs, k, qb = _expanded_inputs(case, cuda_device, 34)
+    before = adc_mod.batched_launches
+    kd, ki = adc_mod.pq_adc_topk_batched(lut, codes, ids, k, **offs)
+    torch.cuda.synchronize()
+    assert adc_mod.batched_launches == before + 1
+    pd, pi = tref.pq_adc_topk_batched_ref(lut, codes, ids, k, **offs)
+    assert torch.equal(kd, pd) and torch.equal(ki, pi)
+    qd, qi = adc_mod.pq_adc_topk_qbuf(*qb, k, **offs)
+    occ = rt.occupied(qb[0], qb[1])
+    assert torch.equal(kd[occ], qd[occ]) and torch.equal(ki[occ], qi[occ])
+    if bool((ids[-1] >= 0).any()):  # the last bucket has valid candidates
+        assert bool(torch.isfinite(kd[-1, -1, 0])) and int(ki[-1, -1, 0]) >= 0
+
+
+@pytest.mark.cuda
+def test_adc_wrappers_reject_what_they_do_not_take(cuda_device):
+    (lut, codes, ids), offs, k, _ = _expanded_inputs("residual offsets", cuda_device, 35)
+    with pytest.raises(TypeError):
+        adc_mod.pq_adc(lut[1].double(), codes[1])
+    with pytest.raises(ValueError):
+        adc_mod.pq_adc(lut[1][:, :2], codes[1])
+    with pytest.raises(TypeError):
+        adc_mod.pq_adc_topk_batched(lut, codes, ids.long(), k, **offs)
+    with pytest.raises(TypeError):
+        adc_mod.pq_adc_topk_batched(lut, codes.to(torch.int16), ids, k)
+    with pytest.raises(ValueError):
+        adc_mod.pq_adc_topk_batched(lut, codes, ids[:, :5], k)
+    with pytest.raises(ValueError):
+        adc_mod.pq_adc_topk(lut[1], codes[1], ids[1], k, q_off=offs["q_off"][1][:3])
+    before = (adc_mod.full_launches, adc_mod.flat_launches, adc_mod.batched_launches)
+    # int32 codes (ks > 65,536): one LUT row exceeds a block's shared memory
+    with pytest.raises(RuntimeError, match="shared memory"):
+        adc_mod.pq_adc(lut[1], codes[1].int())
+    with pytest.raises(RuntimeError, match="shared memory"):
+        adc_mod.pq_adc_topk(lut[1], codes[1].int(), ids[1], k)
+    # 64 x 1024 x 4 B = 256 KB of LUT a row: refused by the kernels
+    big = torch.zeros((2, 64, 1024), device=cuda_device)
+    big_codes = torch.zeros((7, 64), dtype=torch.uint16, device=cuda_device)
+    with pytest.raises(RuntimeError, match="shared memory"):
+        adc_mod.pq_adc(big, big_codes)
+    with pytest.raises(RuntimeError, match="shared memory"):
+        adc_mod.pq_adc_topk(big, big_codes, torch.zeros(7, dtype=torch.int32,
+                                                        device=cuda_device), 3)
+    assert (adc_mod.full_launches, adc_mod.flat_launches, adc_mod.batched_launches) == before
