@@ -11,7 +11,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                duplicate ids, exact ties, non-finite distances, bf16 store,
                residual offsets, uint16 codes, empty slots, buckets and rows
                with nothing valid, ties across the flat scan's candidate
-               ranges, ragged N and B, B = 1, d not a multiple of 4,
+               ranges; for the ADC selection, distances falling along each
+               row, k above the valid count, one distance for every
+               candidate, rows many times k long, -inf, +inf and NaN
+               offsets; ragged N and B, B = 1, d not a multiple of 4,
                duplicate centroids; the ADC cases also through the full, flat
                and batched ADC, expanded through the dispatch buffer) at the
                main paths' widths, under the same rule the tests use;
@@ -33,6 +36,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                cuda vs ref;
   6. kernels — each kernel against its plain version on the inputs the main
                paths gave it, timed with CUDA events beside its bound;
+               pq_adc_topk_qbuf also at the rerank-16 path's stage 1
+               (rk = 1,600) and with every dispatch slot empty, and its
+               launch shape (slots a block, blocks an SM) at both rk;
   7. kmeans  — the build's k-means over the 1M base (B = 1024, 20 Lloyd
                iterations from one k-means++ start): two plain fits must be
                equal bit for bit, a fit through kmeans_assign (21 launches)
@@ -857,8 +863,9 @@ def main(n_base: int = N_BASE, n_queries: int = N_QUERIES) -> int:
         setattr(kops, name, fn)
     for tier in ("f32", "residual_pq"):
         cuda_vs_ref(eng, ds.queries[:BATCH], tier, f"main   {tier}")
-    for tier in ("f32", "residual_pq"):
-        profile_batch(eng, ds.queries[BATCH:2 * BATCH], f"main {tier}", tier=tier)
+    for what, engine, tier in (("f32", eng, "f32"), ("residual_pq", eng, "residual_pq"),
+                               ("residual_pq rerank 16", deep, "residual_pq")):
+        profile_batch(engine, ds.queries[BATCH:2 * BATCH], f"main {what}", tier=tier)
     # f32 reaches ~0.96 on an H100 and residual_pq ~0.89 at rerank 4 (PQ's
     # distortion on this data pushes true neighbours out of a 400-slot
     # shortlist); a broken build, dispatch, ADC scan, rerank or merge lands
@@ -937,8 +944,34 @@ def main(n_base: int = N_BASE, n_queries: int = N_QUERIES) -> int:
         {"lut_pad": list(lut.shape), "qbuf": list(qb.shape),
          "codes": [*codes.shape, str(codes.dtype)], "k": rk,
          "occupied_slots": int(rt.occupied(lut, qb).sum())}))
+    # the same kernel at the rerank-16 path's stage 1 (rk = 1,600)
+    deep_in, _ = inputs["residual_pq rerank 16"]
+    (lut16, qb16, codes16, slots16, rk16), kw16 = deep_in["pq_adc_topk_qbuf"]
+    c16, q16 = kw16["cand_off"], kw16["q_off"]
+    err16 = compare_adc("pq_adc_topk_qbuf rerank-16 inputs", lut16, qb16, codes16, slots16, rk16,
+                        c16, q16)
+    ms16 = time_ms(lambda: adc_mod.pq_adc_topk_qbuf(lut16, qb16, codes16, slots16, rk16,
+                                                     cand_off=c16, q_off=q16), 10)
+    bound16 = bound_entry(*adc_bound(lut16, qb16, codes16, slots16, rk16, c16, q16))
+    log(f"kernel pq_adc_topk_qbuf at the rerank-16 path's stage 1 (k {rk16}): equal to its "
+        f"plain version (max abs err {err16:.3g}); {ms16:.3f} ms (bound {bound16[0]:.3f} ms "
+        f"by {bound16[1]})")
+    kernels[-1]["shapes"]["rerank16"] = {"k": rk16, "ms": ms16, "bound_ms": bound16[0],
+                                         "bound_by": bound16[1]}
+    for k_ in (rk, rk16):
+        log(f"kernel pq_adc_topk_qbuf launch shape at k {k_}: "
+            f"{adc_mod.occupancy(lut, codes, k_)} (m {codes.shape[2]}, ks {lut.shape[2]}, "
+            f"{codes.dtype})")
+    # what the empty blocks cost: the same launch with every slot empty
+    qb_empty = torch.full_like(qb, lut.shape[0] - 1)
+    ms_empty = time_ms(lambda: adc_mod.pq_adc_topk_qbuf(lut, qb_empty, codes, slots, rk,
+                                                         cand_off=coff, q_off=qoff), 10)
+    log(f"kernel pq_adc_topk_qbuf with every one of the {qb.numel()} slots empty (inf / -1 "
+        f"written, nothing scanned): {ms_empty:.3f} ms at k {rk}")
+    kernels[-1]["shapes"]["all_empty_ms"] = ms_empty
+    del qb_empty
     # one block takes one group of G slots of one bucket
-    g = adc_mod.slots_per_block(lut, codes, rk)
+    g = adc_mod.occupancy(lut, codes, rk)["slots_per_block"]
     occ = rt.occupied(lut, qb)
     occ = torch.nn.functional.pad(occ, (0, (-occ.shape[1]) % g)).reshape(occ.shape[0], -1, g)
     work = occ.sum(-1).double() * (slots >= 0).sum(1).double()[:, None]

@@ -1,11 +1,11 @@
 // The block-level body of the ADC top-k scans (pq_adc_topk_qbuf.cu,
-// pq_adc_topk.cu): a group of up to G query rows, whose LUTs sit in shared
-// memory, is scanned against a range of one code set, each row keeping a
-// running top-k list (topk_list.cuh).
+// pq_adc_topk.cu): a group of up to G query rows, one warp each, whose LUTs
+// sit in shared memory, is scanned against a range of one code set, each row
+// keeping a running top-k with a bulk selection (topk_select.cuh).
 //
 // For slot i of the group, row r = rows[i] (or row0 + i when rows is null)
 // names its LUT; a row below 0 or at or above `empty_row` marks an empty
-// slot, which is flushed as inf / -1 and not scanned (the dispatch buffer
+// slot, which is written as inf / -1 and not scanned (the dispatch buffer
 // passes its sentinel row; an identity map passes a bound no row reaches, so
 // every row, the last one included, is scanned). Each candidate's distance
 //
@@ -13,168 +13,281 @@
 //
 // is summed over m in order, then q_off, then cand_off, with additions only,
 // so nothing contracts into an FMA and the result equals the plain version
-// bit for bit. Candidates with ids[n] < 0 are masked; lists are keyed by
-// (dist, position in the set), so an earlier candidate wins an exact tie.
+// bit for bit. Candidates with ids[n] < 0 are masked; keys are (dist,
+// position in the set), so an earlier candidate wins an exact tie, and a NaN
+// sorts by its sign, as the plain version on the card (topk_select.cuh).
 //
-// Candidates go in tiles of 256, one per thread; a tile's codes are read
-// coalesced in their store dtype (uint8 or uint16, never widened) and kept
-// transposed in shared memory; tiles with no valid id are skipped. Each
-// thread sums its candidate for all G rows in registers; warp w then keeps
-// row w's list in shared memory. G is the largest of 8, 4, 2, 1 whose shared
-// memory fits in the 227 KB a block can opt into.
+// What bounds the scan is each row's work: m shared-memory gathers and adds
+// a candidate, and keeping the k smallest. The design:
+//  * each warp owns one occupied slot end to end: its LUT row (loaded by the
+//    warp itself), its list and its staging buffer, so the scan needs no
+//    block barrier; the block meets only to end the range at its last valid
+//    id, read as 16-byte vectors (trailing padding costs no step);
+//  * a lane takes one candidate of each 32 and reads its codes straight from
+//    device memory in their store dtype, never widened: one 16-byte load when
+//    a code row is 16 bytes (NV = 1; the serve path's m = 16 uint8), else
+//    element by element (NV = 0). There is no code tile, no barrier around it
+//    and no division per element. Four groups of 32 candidates are loaded
+//    together to keep loads in flight;
+//  * the selection filters each candidate against the row's k-th key and
+//    sorts and merges survivors in bulks of 256 (topk_select.cuh);
+//  * G is chosen for the most rows an SM holds at once, as the occupancy
+//    calculator gives it for the kernel that is launched (shared memory
+//    bounds it: a row needs its LUT, its list and its buffer), the larger G
+//    on a tie (fewer blocks, each range end found once for more rows), at
+//    most 8. That one plan gives the launch, the flat scan's split and the
+//    launch shape the wrappers report.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
-#include "topk_list.cuh"
+#include "topk_select.cuh"
 
 namespace adcscan {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTileN = kThreads;     // candidates per tile, one per thread
-constexpr int kMaxGroup = kWarps;    // one warp keeps one row's list
-constexpr size_t kMaxSmem = 232448;  // 227 KB, the most a block can opt into
+using topksel::kAllLanes;
+using topksel::Selector;
 
-inline size_t smem_bytes(int G, int m, int ks, int k, int code_size) {
-  return 4 * ((size_t)G * m * ks      // lut_s: the group's LUT rows
-              + (size_t)G * kTileN     // dt: distance tile
-              + 2 * (size_t)G * k      // Ld, Lc: running lists
-              + kTileN                 // cid
-              + 3 * (size_t)G + 1)     // occ_slot, occ_row, qo, n_occ
-         + (size_t)m * kTileN * code_size;  // codes_s: transposed code tile
+constexpr int kMaxGroup = 8;         // rows (warps) a block at most
+constexpr int kUnroll = 4;           // groups of 32 candidates loaded together
+constexpr size_t kMaxSmem = 232448;  // 227 KB, the most a block can opt into
+constexpr size_t kHead = 16;         // the block's range end
+
+__host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~(size_t)15; }
+
+// Shared memory of one row: its LUT, its list and its buffer.
+__host__ __device__ inline size_t row_smem(int m, int ks, int k) {
+  return align16((size_t)m * ks * 4) + topksel::row_bytes(k);
 }
 
-inline int pick_group(int m, int ks, int k, int code_size) {
-  int G = kMaxGroup;
-  while (G > 1 && smem_bytes(G, m, ks, k, code_size) > kMaxSmem) G >>= 1;
-  return G;
+inline size_t smem_bytes(int G, int m, int ks, int k) {
+  return kHead + (size_t)G * row_smem(m, ks, k);
+}
+
+// A kernel's launch at some widths: rows (warps) a block, its shared
+// memory, and blocks resident on an SM.
+struct Plan {
+  int G = 0;  // 0 when not even one row fits a block
+  size_t smem = 0;
+  int per_sm = 0;
+};
+
+// The group size with the most rows resident on an SM for `kernel` (ties to
+// the larger group), from the occupancy calculator.
+template <typename Kernel>
+inline Plan plan(Kernel* kernel, int m, int ks, int k) {
+  Plan best;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem) !=
+      cudaSuccess)
+    return best;
+  for (int G = 1; G <= kMaxGroup; ++G) {
+    const size_t smem = smem_bytes(G, m, ks, k);
+    int per_sm = 0;
+    if (smem > kMaxSmem ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 32 * G, smem) !=
+            cudaSuccess)
+      break;
+    if (per_sm > 0 && G * per_sm >= best.G * best.per_sm) best = {G, smem, per_sm};
+  }
+  return best;
+}
+
+// 16-byte code vectors a row, the scan's NV: 1 when a row's codes are one
+// vector (and their base is 16-byte aligned, as a tensor's own storage is),
+// else 0.
+inline int code_vectors(int m, int code_size, bool aligned = true) {
+  return aligned && m * code_size == 16 ? 1 : 0;
+}
+
+inline int code_vectors(const void* codes, int m, int code_size) {
+  return code_vectors(m, code_size, (reinterpret_cast<uintptr_t>(codes) & 15) == 0);
+}
+
+// The sum over m of one candidate's LUT terms, from its NV code vectors.
+// (Written for NV vectors, as an array passed by reference: on an H100 the
+// same sum over one vector passed by value ran slower, PERF.md §6.)
+template <typename CT, int NV>
+__device__ __forceinline__ float sum_vec(const float* __restrict__ L, int ks,
+                                         const uint4 (&cv)[NV > 0 ? NV : 1]) {
+  constexpr int P = 16 / sizeof(CT);  // codes a vector
+  constexpr int B = 8 * sizeof(CT);   // bits a code
+  float acc = 0.f;
+#pragma unroll
+  for (int n = 0; n < NV; ++n) {
+    const unsigned w[4] = {cv[n].x, cv[n].y, cv[n].z, cv[n].w};
+#pragma unroll
+    for (int t = 0; t < P; ++t) {
+      const int j = n * P + t;
+      const unsigned code = (w[t / (P / 4)] >> (B * (t % (P / 4)))) & ((1u << B) - 1);
+      const float x = L[j * ks + code];
+      acc = j == 0 ? x : acc + x;
+    }
+  }
+  return acc;
+}
+
+// The same, reading the m codes of row `row` element by element.
+template <typename CT>
+__device__ __forceinline__ float sum_row(const float* __restrict__ L, int m, int ks,
+                                         const CT* __restrict__ row) {
+  float acc = L[__ldg(row)];
+  for (int j = 1; j < m; ++j) acc += L[j * ks + __ldg(row + j)];
+  return acc;
+}
+
+// The range end: the last valid id of [c_lo, c_hi), read as 16-byte vectors
+// from the first aligned id on, by the whole block, four loads in flight a
+// thread (c_lo - 1 where it finds none); the unaligned head goes to warp 0.
+__device__ __forceinline__ int head_end(const int* ib, int c_lo, int c_hi) {
+  const int skip = (int)((16 - (reinterpret_cast<uintptr_t>(ib + c_lo) & 15)) & 15) / 4;
+  return min(c_hi, c_lo + skip);
+}
+
+__device__ __forceinline__ int last_valid_head(const int* __restrict__ ib, int c_lo, int c_hi,
+                                               int lane) {
+  const int c = c_lo + lane;
+  const int last = c < head_end(ib, c_lo, c_hi) && __ldg(ib + c) >= 0 ? c : c_lo - 1;
+  return __reduce_max_sync(kAllLanes, last);
+}
+
+__device__ __forceinline__ int last_valid_body(const int* __restrict__ ib, int c_lo, int c_hi) {
+  const int a0 = head_end(ib, c_lo, c_hi);
+  const int n4 = (c_hi - a0) / 4;
+  const int4* p4 = reinterpret_cast<const int4*>(ib + a0);
+  int last = c_lo - 1;
+  for (int t0 = threadIdx.x; t0 < n4; t0 += 4 * blockDim.x) {
+    int4 v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int t = t0 + u * blockDim.x;
+      v[u] = t < n4 ? __ldg(p4 + t) : make_int4(-1, -1, -1, -1);
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int c = a0 + 4 * (t0 + u * blockDim.x);
+      if (v[u].x >= 0) last = max(last, c);
+      if (v[u].y >= 0) last = max(last, c + 1);
+      if (v[u].z >= 0) last = max(last, c + 2);
+      if (v[u].w >= 0) last = max(last, c + 3);
+    }
+  }
+  for (int c = a0 + 4 * n4 + threadIdx.x; c < c_hi; c += blockDim.x)  // the tail
+    if (__ldg(ib + c) >= 0) last = max(last, c);
+  return last;
 }
 
 // Scan candidates [c_lo, c_hi) of one set (codes cb [*, m], ids ib, offsets
 // cob or null) for the group's ns slots and write slot i's list to
-// od / oi [i * k, (i + 1) * k): the id ib[position], or the position itself
-// when write_ids is false; inf / -1 past a list's length. qob [ns] (or null)
-// is the group's per-slot offset. Every thread of the block calls this.
-template <typename CT, int G>
-__device__ void scan_group(float* smem, const float* __restrict__ lut, int m, int ks,
+// od / oi [i * k, (i + 1) * k): the id ib[position] (-1 beside a distance
+// that is not finite, as the plain version), or the position itself, whatever
+// the distance, when write_ids is false (the merge applies that rule); inf /
+// -1 past a list's length. qob [ns] (or null) is the group's per-slot offset.
+// Every thread of the block (32 * G, G >= ns) calls this. NV = 1 needs
+// 16-byte aligned code rows of 16 bytes.
+template <typename CT, int NV>
+__device__ void scan_group(unsigned char* smem, const float* __restrict__ lut, int m, int ks,
                            const int* __restrict__ rows, size_t row0, int ns, int empty_row,
                            const float* __restrict__ qob, const CT* __restrict__ cb,
                            const int* __restrict__ ib, const float* __restrict__ cob,
                            int c_lo, int c_hi, int k, float* __restrict__ od,
                            int* __restrict__ oi, bool write_ids) {
-  const int mks = m * ks;
-  float* lut_s = smem;
-  float* dt = lut_s + (size_t)G * mks;
-  float* Ld = dt + G * kTileN;
-  int* Lc = reinterpret_cast<int*>(Ld + (size_t)G * k);
-  int* cid = Lc + (size_t)G * k;
-  int* occ_slot = cid + kTileN;
-  int* occ_row = occ_slot + G;
-  float* qo = reinterpret_cast<float*>(occ_row + G);
-  int* n_occ_s = reinterpret_cast<int*>(qo + G);
-  CT* codes_s = reinterpret_cast<CT*>(n_occ_s + 1);
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   auto row_of = [&](int i) { return rows ? rows[i] : (int)(row0 + i); };
 
-  // the group's occupied slots, in slot order; empty slots flush as inf / -1
-  if (tid == 0) {
-    int n = 0;
-    for (int i = 0; i < ns; ++i) {
-      const int r = row_of(i);
-      if (r >= 0 && r < empty_row) {
-        occ_slot[n] = i;
-        occ_row[n] = r;
-        qo[n] = qob ? qob[i] : 0.f;
-        ++n;
+  // the group's occupied slots; warp w scans the w-th
+  int r_lane = -1;
+  if (lane < ns) r_lane = row_of(lane);
+  const bool occ_lane = lane < ns && r_lane >= 0 && r_lane < empty_row;
+  unsigned occ = __ballot_sync(kAllLanes, occ_lane);
+  const int n_occ = __popc(occ);
+
+  // empty slots: warp w writes slot w
+  if (warp < ns && !((occ >> warp) & 1u)) {
+    float* d = od + (size_t)warp * k;
+    int* o = oi + (size_t)warp * k;
+    if ((k & 3) == 0) {
+      for (int i = lane; i < k / 4; i += 32) {
+        reinterpret_cast<float4*>(d)[i] =
+            make_float4(CUDART_INF_F, CUDART_INF_F, CUDART_INF_F, CUDART_INF_F);
+        reinterpret_cast<int4*>(o)[i] = make_int4(-1, -1, -1, -1);
       }
+    } else {
+      for (int i = lane; i < k; i += 32) { d[i] = CUDART_INF_F; o[i] = -1; }
     }
-    *n_occ_s = n;
   }
-  for (int e = tid; e < ns * k; e += kThreads) {
-    const int r = row_of(e / k);
-    if (!(r >= 0 && r < empty_row)) { od[e] = CUDART_INF_F; oi[e] = -1; }
-  }
+  if (n_occ == 0) return;  // the whole block leaves together
+
+  // end the range at its last valid id (the block's only barriers)
+  int* last_s = reinterpret_cast<int*>(smem);
+  if (threadIdx.x == 0) *last_s = c_lo - 1;
   __syncthreads();
-  const int n_occ = *n_occ_s;
-  if (n_occ == 0) return;
+  if (threadIdx.x < 32) atomicMax(last_s, last_valid_head(ib, c_lo, c_hi, lane));
+  atomicMax(last_s, last_valid_body(ib, c_lo, c_hi));
+  __syncthreads();
+  const int c_end = *last_s + 1;
+  if (warp >= n_occ) return;
 
-  for (int i = 0; i < n_occ; ++i) {
-    const float* src = lut + (size_t)occ_row[i] * mks;
-    for (int e = tid; e < mks; e += kThreads) lut_s[(size_t)i * mks + e] = src[e];
-  }
+  for (int t = 0; t < warp; ++t) occ &= occ - 1;
+  const int slot = __ffs(occ) - 1;
+  const int r = __shfl_sync(kAllLanes, r_lane, slot);
+  const float qo = qob ? qob[slot] : 0.f;
 
-  // warp w keeps the list of occupied slot w; (td, tc) is its k-th key
-  float* Lds = Ld + (size_t)warp * k;
-  int* Lcs = Lc + (size_t)warp * k;
-  int len = 0;
-  float td = CUDART_INF_F;
-  int tc = 0;
-
-  for (int c0 = c_lo; c0 < c_hi; c0 += kTileN) {
-    const int c = c0 + tid;
-    const int id = c < c_hi ? ib[c] : -1;
-    cid[tid] = id;
-    if (!__syncthreads_or(id >= 0)) continue;  // no valid candidate in this tile
-
-    const int nt = min(kTileN, c_hi - c0);
-    const CT* ct = cb + (size_t)c0 * m;
-    for (int e = tid; e < nt * m; e += kThreads) {
-      const int t = e / m, j = e - t * m;
-      codes_s[j * kTileN + t] = ct[e];
-    }
-    __syncthreads();
-
-    if (id >= 0) {
-      float acc[G];
-      {
-        const int code = codes_s[tid];
-#pragma unroll
-        for (int g = 0; g < G; ++g) acc[g] = lut_s[(size_t)g * mks + code];
-      }
-      for (int j = 1; j < m; ++j) {
-        const int code = codes_s[j * kTileN + tid];
-#pragma unroll
-        for (int g = 0; g < G; ++g) acc[g] += lut_s[(size_t)g * mks + j * ks + code];
-      }
-      const float co = cob ? cob[c] : 0.f;
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        float v = acc[g];
-        if (qob) v += qo[g];
-        if (cob) v += co;
-        dt[g * kTileN + tid] = v;
-      }
-    }
-    __syncthreads();
-
-    if (warp < n_occ) {
-      for (int h = 0; h < nt; h += 32) {
-        const int cl = h + lane;
-        const bool ok = cl < nt && cid[cl] >= 0;
-        const float dist = ok ? dt[warp * kTileN + cl] : 0.f;
-        list_offer(Lds, Lcs, len, k, td, tc, ok, dist, c0 + cl, lane);
-      }
-    }
-    __syncthreads();
-  }
-
-  // flush the occupied slots; unfilled places are inf / -1
-  if (warp < n_occ) {
-    const size_t o = (size_t)occ_slot[warp] * k;
-    for (int i = lane; i < k; i += 32) {
-      if (i < len) {
-        od[o + i] = Lds[i];
-        oi[o + i] = write_ids ? ib[Lcs[i]] : Lcs[i];
-      } else {
-        od[o + i] = CUDART_INF_F;
-        oi[o + i] = -1;
-      }
+  unsigned char* mine = smem + kHead + (size_t)warp * row_smem(m, ks, k);
+  float* L = reinterpret_cast<float*>(mine);
+  {  // this row's LUT
+    const int mks = m * ks;
+    const float* src = lut + (size_t)r * mks;
+    if ((mks & 3) == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+#pragma unroll 8
+      for (int e = lane; e < mks / 4; e += 32)
+        reinterpret_cast<float4*>(L)[e] = __ldg(reinterpret_cast<const float4*>(src) + e);
+    } else {
+      for (int e = lane; e < mks; e += 32) L[e] = __ldg(src + e);
     }
   }
+  Selector sel;
+  sel.init(mine + align16((size_t)m * ks * 4), k);
+  __syncwarp();
+
+  for (int c0 = c_lo; c0 < c_end; c0 += 32 * kUnroll) {
+    int id[kUnroll];
+    float co[kUnroll];
+    uint4 cv[kUnroll][NV > 0 ? NV : 1];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int c = c0 + u * 32 + lane;
+      const bool in = c < c_end;
+      id[u] = in ? __ldg(ib + c) : -1;
+      co[u] = in && cob ? __ldg(cob + c) : 0.f;
+      if (NV > 0 && in) {
+        const uint4* src = reinterpret_cast<const uint4*>(cb + (size_t)c * m);
+#pragma unroll
+        for (int n = 0; n < NV; ++n) cv[u][n] = __ldg(src + n);
+      }
+    }
+    bool any = false;
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) any |= id[u] >= 0;
+    if (!__any_sync(kAllLanes, any)) continue;  // no valid candidate here
+    float d[kUnroll];  // all distances first: their gathers overlap
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      d[u] = 0.f;
+      if (id[u] >= 0) {
+        const int c = c0 + u * 32 + lane;
+        d[u] = NV > 0 ? sum_vec<CT, NV>(L, ks, cv[u]) : sum_row(L, m, ks, cb + (size_t)c * m);
+        if (qob) d[u] += qo;
+        if (cob) d[u] += co[u];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      sel.offer(id[u] >= 0, topksel::pack(d[u], c0 + u * 32 + lane), lane);
+  }
+  sel.flush(lane);
+  sel.store(od + (size_t)slot * k, oi + (size_t)slot * k, write_ids ? ib : nullptr, lane);
 }
 
 }  // namespace adcscan

@@ -95,7 +95,7 @@ int launch(const void* q, int B, int Q, const void* cands, const void* ids, int 
 extern "C" {
 
 // Shared memory a scan block needs, in bytes; above 232448 the launch is
-// refused (the merge needs 8 * 2 * k * 4 bytes).
+// refused (the merge needs topkmerge::merge_smem(k) bytes).
 long long l2_topk_smem_bytes(int d, int k) { return (long long)scan_smem(d, k); }
 
 // Candidate ranges each set is split into on the current device: as many as

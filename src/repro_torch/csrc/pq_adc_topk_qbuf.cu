@@ -11,24 +11,29 @@
 // and the result equals the plain version bit for bit. Candidates with
 // ids[b, n] < 0 are masked; the k smallest (d, n) pairs per slot come out
 // ascending as (dist, ids[b, n]), inf / -1 where fewer than k are valid. An
-// earlier candidate wins an exact tie (topk_list.cuh).
+// earlier candidate wins an exact tie (topk_select.cuh).
 //
 // What bounds it on an H100: bytes. The [B, S, k] outputs are written whole
 // (empty slots as inf / -1), and the occupied slots' LUT rows, the ids,
 // offsets and codes of the used buckets are read once; the lookups are
 // m per (occupied slot, valid candidate), a few tens of microseconds of
-// shared-memory reads at the serve path's widths.
+// shared-memory reads at the serve path's widths. What keeps it from that
+// bound is each occupied row's work: its gathers, and keeping the k = rk
+// smallest of ~1,000 candidates (k = 400 on the serve path, 1,600 at
+// rerank 16).
 //
-// What this simple design does about it: one block per (bucket, group of G
-// dispatch slots), so a hot bucket's occupied slots spread over several
-// blocks instead of one; the block runs adc_scan.cuh's body over its bucket
-// (the group's LUT rows in shared memory, read by gather; codes in tiles of
-// 256 in their store dtype; tiles with no valid id skipped), with
-// qbuf == n_rows - 1 as the empty slot, flushed as inf / -1 unscanned. The
-// running lists (k = rk = 400 on the serve path) are G x k x 8 bytes of
-// shared memory; the launch is refused when not even one slot fits.
-// Splitting a bucket's candidates across blocks (as pq_adc_topk.cu does),
-// and a faster selection than one insert at a time, are later work.
+// What the design does about it: one block per (group of G dispatch slots,
+// bucket), so a hot bucket's occupied slots spread over several blocks; the
+// slot groups are the slowest grid index, so the blocks that hold the
+// buckets' first slots, where the dispatch puts its queries, run first and
+// the empty ones after. A block runs adc_scan.cuh's body over its bucket:
+// one warp a slot, which keeps its own LUT row, list and buffer and reads
+// 16-byte code rows straight into registers; a bulk selection (filter
+// against the k-th key, sort and merge in bulks of 256) in place of one
+// insert at a time (topk_select.cuh). qbuf == n_rows - 1 is the empty slot:
+// its warp writes inf / -1 and, when the whole group is empty, the block
+// leaves without reading anything else. The launch is refused when not even
+// one slot fits a block's shared memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -39,76 +44,75 @@ namespace {
 
 using namespace adcscan;
 
-template <typename CT, int G>
-__global__ void __launch_bounds__(kThreads)
+template <typename CT, int NV>
+__global__ void __launch_bounds__(32 * kMaxGroup)
 pq_adc_topk_qbuf_kernel(const float* __restrict__ lut_pad, int n_rows, int m, int ks,
-                        const int* __restrict__ qbuf, int S,
+                        const int* __restrict__ qbuf, int B, int S,
                         const CT* __restrict__ codes, const int* __restrict__ ids,
                         const float* __restrict__ cand_off,
                         const float* __restrict__ q_off, int N, int k,
                         float* __restrict__ od, int* __restrict__ oi) {
-  extern __shared__ __align__(16) float smem[];
-  const int n_groups = (S + G - 1) / G;
-  const int b = blockIdx.x / n_groups;
-  const int s0 = (blockIdx.x - b * n_groups) * G;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int G = blockDim.x / 32;
+  const int b = blockIdx.x % B;
+  const int s0 = (blockIdx.x / B) * G;
   const size_t slot0 = (size_t)b * S + s0;
   // qbuf == n_rows - 1 is the empty slot
-  scan_group<CT, G>(smem, lut_pad, m, ks, qbuf + slot0, 0, min(G, S - s0), n_rows - 1,
-                    q_off ? q_off + slot0 : nullptr, codes + (size_t)b * N * m,
-                    ids + (size_t)b * N, cand_off ? cand_off + (size_t)b * N : nullptr, 0, N,
-                    k, od + slot0 * k, oi + slot0 * k, true);
+  scan_group<CT, NV>(smem, lut_pad, m, ks, qbuf + slot0, 0, min(G, S - s0), n_rows - 1,
+                      q_off ? q_off + slot0 : nullptr, codes + (size_t)b * N * m,
+                      ids + (size_t)b * N, cand_off ? cand_off + (size_t)b * N : nullptr, 0, N,
+                      k, od + slot0 * k, oi + slot0 * k, true);
 }
 
-template <typename CT, int G>
-int run(const void* lut_pad, int n_rows, int m, int ks, const void* qbuf, int B, int S,
-        const void* codes, const void* ids, const void* cand_off, const void* q_off,
-        int N, int k, void* od, void* oi, size_t smem, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(pq_adc_topk_qbuf_kernel<CT, G>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long blocks = (long long)B * ((S + G - 1) / G);
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  pq_adc_topk_qbuf_kernel<CT, G><<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)lut_pad, n_rows, m, ks, (const int*)qbuf, S, (const CT*)codes,
-      (const int*)ids, (const float*)cand_off, (const float*)q_off, N, k, (float*)od,
-      (int*)oi);
-  return (int)cudaGetLastError();
+// The launch plan of the kernel that codes of this width take.
+template <typename CT>
+Plan plan_for(int nv, int m, int ks, int k) {
+  return nv ? plan(pq_adc_topk_qbuf_kernel<CT, 1>, m, ks, k) : plan(pq_adc_topk_qbuf_kernel<CT, 0>, m, ks, k);
+}
+
+Plan plan_for(int code_size, int m, int ks, int k) {
+  const int nv = code_vectors(m, code_size);
+  return code_size == 2 ? plan_for<uint16_t>(nv, m, ks, k) : plan_for<uint8_t>(nv, m, ks, k);
 }
 
 template <typename CT>
 int launch(const void* lut_pad, int n_rows, int m, int ks, const void* qbuf, int B, int S,
            const void* codes, const void* ids, const void* cand_off, const void* q_off,
            int N, int k, void* od, void* oi, void* stream) {
-  const int G = pick_group(m, ks, k, sizeof(CT));
-  const size_t smem = smem_bytes(G, m, ks, k, sizeof(CT));
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const int nv = code_vectors(codes, m, sizeof(CT));
+  const Plan p = plan_for<CT>(nv, m, ks, k);
+  if (p.G == 0) return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return 0;
-  switch (G) {
-    case 8: return run<CT, 8>(lut_pad, n_rows, m, ks, qbuf, B, S, codes, ids, cand_off, q_off,
-                              N, k, od, oi, smem, stream);
-    case 4: return run<CT, 4>(lut_pad, n_rows, m, ks, qbuf, B, S, codes, ids, cand_off, q_off,
-                              N, k, od, oi, smem, stream);
-    case 2: return run<CT, 2>(lut_pad, n_rows, m, ks, qbuf, B, S, codes, ids, cand_off, q_off,
-                              N, k, od, oi, smem, stream);
-    default: return run<CT, 1>(lut_pad, n_rows, m, ks, qbuf, B, S, codes, ids, cand_off,
-                               q_off, N, k, od, oi, smem, stream);
-  }
+  const long long blocks = (long long)B * ((S + p.G - 1) / p.G);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  auto kernel = nv ? pq_adc_topk_qbuf_kernel<CT, 1> : pq_adc_topk_qbuf_kernel<CT, 0>;
+  kernel<<<(unsigned)blocks, 32 * p.G, p.smem, (cudaStream_t)stream>>>(
+      (const float*)lut_pad, n_rows, m, ks, (const int*)qbuf, B, S, (const CT*)codes,
+      (const int*)ids, (const float*)cand_off, (const float*)q_off, N, k, (float*)od,
+      (int*)oi);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dispatch slots per block for these widths (8, 4, 2 or 1).
+// The launch at these widths on the current device, for codes of
+// code_size bytes whose base is 16-byte aligned: dispatch slots a block (1 to
+// 8; 0 when one slot's LUT, list and buffer exceed a block's shared memory),
+// the shared memory a block needs (one slot's when none fits; above 232448
+// the launch is refused), and blocks resident on an SM.
 int pq_adc_topk_qbuf_group(int m, int ks, int k, int code_size) {
-  return pick_group(m, ks, k, code_size);
+  return plan_for(code_size, m, ks, k).G;
 }
 
-// Shared memory one block needs at that group size, in bytes; above 232448
-// the launch is refused.
 long long pq_adc_topk_qbuf_smem_bytes(int m, int ks, int k, int code_size) {
-  return (long long)smem_bytes(pick_group(m, ks, k, code_size), m, ks, k, code_size);
+  const int G = plan_for(code_size, m, ks, k).G;
+  return (long long)smem_bytes(G > 0 ? G : 1, m, ks, k);
+}
+
+int pq_adc_topk_qbuf_blocks_per_sm(int m, int ks, int k, int code_size) {
+  return plan_for(code_size, m, ks, k).per_sm;
 }
 
 // lut_pad [n_rows, m, ks] f32, qbuf [B, S] int32, codes [B, N, m] uint8 or

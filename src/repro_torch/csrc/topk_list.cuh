@@ -1,5 +1,6 @@
-// A running top-k kept by one warp as a sorted list in shared memory, shared
-// by the scan kernels (l2_topk_qbuf.cu, pq_adc_topk_qbuf.cu).
+// A running top-k kept by one warp as a sorted list in shared memory, for the
+// L2 scans (l2_scan.cuh); the ADC scans and the split scans' merge select in
+// bulk instead (topk_select.cuh).
 //
 // Keys are (dist, candidate index) in lexicographic order, so an earlier
 // candidate wins an exact tie, as on the TPU, where the running list precedes

@@ -1,14 +1,15 @@
 // The merge of partial top-k lists, shared by the split scans (l2_topk.cu,
 // pq_adc_topk.cu): a scan split along its candidates writes, per row and
 // range, a list of (dist, position) pairs; this kernel merges a row's lists,
-// one warp per row, under the same (dist, position) key, so a lower position
-// still wins an exact tie, and writes the ids.
+// one warp per row, with the bulk selection of topk_select.cuh under the
+// same (dist, position) key, so a lower position still wins an exact tie,
+// and writes the ids (-1 beside a distance that is not finite, as the plain
+// versions).
 #pragma once
 
 #include <cuda_runtime.h>
-#include <math_constants.h>
 
-#include "topk_list.cuh"
+#include "topk_select.cuh"
 
 namespace topkmerge {
 
@@ -16,7 +17,7 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
 // Shared memory one merge block needs, in bytes.
-inline size_t merge_smem(int k) { return (size_t)kWarps * 2 * k * sizeof(float); }
+inline size_t merge_smem(int k) { return (size_t)kWarps * topksel::row_bytes(k); }
 
 // One warp per (bucket, query) row: merge its `splits` partial lists
 // (pd, pc [B, splits, Q, k], positions < 0 unfilled) into od / oi [B, Q, k],
@@ -25,30 +26,24 @@ __global__ void __launch_bounds__(kThreads)
 topk_merge_kernel(const float* __restrict__ pd, const int* __restrict__ pc,
                   const int* __restrict__ ids, int B, int Q, int C, int k, int splits,
                   float* __restrict__ od, int* __restrict__ oi) {
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long row = (long long)blockIdx.x * kWarps + warp;  // b * Q + query
   if (row >= (long long)B * Q) return;  // the whole warp leaves together
-  float* Ld = smem + warp * 2 * k;
-  int* Lc = reinterpret_cast<int*>(Ld + k);
   const int b = (int)(row / Q), qi = (int)(row % Q);
-  int len = 0;
-  float td = CUDART_INF_F;
-  int tc = 0;
+  topksel::Selector sel;
+  sel.init(smem + warp * topksel::row_bytes(k), k);
   for (int s = 0; s < splits; ++s) {
     const size_t base = (((size_t)b * splits + s) * Q + qi) * k;
     for (int h = 0; h < k; h += 32) {
       const int i = h + lane;
       const int c = i < k ? pc[base + i] : -1;
-      const float dist = i < k ? pd[base + i] : CUDART_INF_F;
-      list_offer(Ld, Lc, len, k, td, tc, c >= 0, dist, c, lane);
+      const float dist = i < k ? pd[base + i] : 0.f;
+      sel.offer(c >= 0, topksel::pack(dist, c), lane);
     }
   }
-  const int* ib = ids + (size_t)b * C;
-  for (int i = lane; i < k; i += 32) {
-    od[row * k + i] = i < len ? Ld[i] : CUDART_INF_F;
-    oi[row * k + i] = i < len ? ib[Lc[i]] : -1;
-  }
+  sel.flush(lane);
+  sel.store(od + row * k, oi + row * k, ids + (size_t)b * C, lane);
 }
 
 // Launch the merge on `stream`; returns a cudaError_t.

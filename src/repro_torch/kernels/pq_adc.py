@@ -33,18 +33,25 @@ def _lib():
             f.argtypes = [ptr, i32, i32, i32, ptr, i32, i32, ptr, ptr, ptr, ptr, i32, i32,
                           ptr, ptr, ptr]
             f.restype = i32
-        for fn in ("pq_adc_topk_qbuf_group", "pq_adc_topk_qbuf_smem_bytes"):
+        for fn in ("pq_adc_topk_qbuf_group", "pq_adc_topk_qbuf_smem_bytes",
+                   "pq_adc_topk_qbuf_blocks_per_sm"):
             getattr(lib, fn).argtypes = [i32, i32, i32, i32]
         lib.pq_adc_topk_qbuf_group.restype = i32
+        lib.pq_adc_topk_qbuf_blocks_per_sm.restype = i32
         lib.pq_adc_topk_qbuf_smem_bytes.restype = ctypes.c_longlong
         lib._typed = True
     return lib
 
 
-def slots_per_block(lut_pad: torch.Tensor, codes: torch.Tensor, k: int) -> int:
-    """Dispatch slots one block of the kernel takes at these widths."""
+def occupancy(lut_pad: torch.Tensor, codes: torch.Tensor, k: int) -> dict:
+    """The kernel's launch shape at these widths on the current device: slots
+    (warps) a block, blocks resident on an SM, shared memory a block."""
     _, m, ks = lut_pad.shape
-    return _lib().pq_adc_topk_qbuf_group(m, ks, k, codes.element_size())
+    lib, size = _lib(), codes.element_size()
+    with torch.cuda.device(codes.device):
+        return {"slots_per_block": lib.pq_adc_topk_qbuf_group(m, ks, k, size),
+                "blocks_per_sm": lib.pq_adc_topk_qbuf_blocks_per_sm(m, ks, k, size),
+                "smem_bytes": lib.pq_adc_topk_qbuf_smem_bytes(m, ks, k, size)}
 
 
 def pq_adc_topk_qbuf(lut_pad: torch.Tensor, qbuf: torch.Tensor, codes: torch.Tensor,

@@ -201,6 +201,22 @@ _ADC_CASES = {
     # ranges of the flat scan (eight tiles of 256)
     "exact ties across ranges": lambda w: dict(integer=True, hole_frac=0.0, pad_tail=0,
                                                n=2048, dup="halves"),
+    # exact distances that fall along each row (LUT entry = code, codes
+    # spelling n - 1 - position): every candidate beats the list, so the
+    # selection's buffer fills and merges many times
+    "descending distances": lambda w: dict(integer=True, codes="descending"),
+    # k well over the valid count (rk = 1,600 at rerank 16 against ~1,000)
+    "k above valid": lambda w: dict(k=w["n"] * 16 // 15),
+    # one distance for every candidate: the lowest positions must win
+    "equal distances": lambda w: dict(integer=True, lut="ones"),
+    # N many times k, as a hot partition gives
+    "long rows": lambda w: dict(n=10 * w["k"], offsets=True),
+    # cand_off of -inf, +inf or NaN at some candidates: -inf leads its row
+    # with id -1, +inf and NaN follow every finite distance, and NaN never
+    # reaches the k smallest; eight tiles of 256, so the flat scan splits. (In
+    # cand_off, not the LUT: the JAX kernels' one-hot contraction turns a
+    # whole LUT row NaN, 0 * inf.)
+    "non-finite distances": lambda w: dict(n=2048, offsets=True, nonfinite=True),
 }
 ADC_CASES = tuple(_ADC_CASES)
 
@@ -214,16 +230,24 @@ def adc_case(case: str, *, width: str = "small", seed: int = 0):
     slot; the rest have holes, a padding tail and empty slots."""
     w = ADC_WIDTHS[width]
     kw = {**w, "hole_frac": 0.15, "pad_tail": w["n"] // 6, "empty_frac": 0.3,
-          "integer": False, "offsets": False, "dup": "pairs", **_ADC_CASES[case](w)}
+          "integer": False, "offsets": False, "dup": "pairs", "codes": "random",
+          "lut": "random", "nonfinite": False, **_ADC_CASES[case](w)}
     b, s, n, m, ks, n_rows = (kw[x] for x in ("b", "s", "n", "m", "ks", "n_rows"))
     rng = np.random.default_rng(seed)
-    if kw["integer"]:
+    if kw["lut"] == "ones":
+        lut = np.ones((n_rows, m, ks), np.float32)
+    elif kw["codes"] == "descending":
+        lut = np.broadcast_to(np.arange(ks, dtype=np.float32), (n_rows, m, ks)).copy()
+    elif kw["integer"]:
         lut = rng.integers(0, 4, (n_rows, m, ks)).astype(np.float32)
     else:
         lut = (rng.random((n_rows, m, ks)) * 10).astype(np.float32)
     lut_pad = np.concatenate([lut, np.zeros((1, m, ks), np.float32)])
     codes = rng.integers(0, ks, (b, n, m)).astype(np.uint8 if ks <= 256 else np.uint16)
-    if kw["integer"] and kw["dup"] == "pairs":
+    if kw["codes"] == "descending":  # codes summing to n - 1 - position, filled greedily
+        total = (n - 1 - np.arange(n))[:, None] - (ks - 1) * np.arange(m)[None, :]
+        codes[:] = np.clip(total, 0, ks - 1).astype(codes.dtype)[None]
+    elif kw["integer"] and kw["dup"] == "pairs":
         codes[:, 1::2] = codes[:, ::2][:, :n // 2]   # duplicate rows, distinct ids
     elif kw["integer"]:
         codes[:, n // 2:2 * (n // 2)] = codes[:, :n // 2]
@@ -239,17 +263,29 @@ def adc_case(case: str, *, width: str = "small", seed: int = 0):
     if kw["offsets"]:
         cand_off = (rng.normal(size=(b, n)) * 5).astype(np.float32)
         q_off = (rng.normal(size=(b, s)) * 5).astype(np.float32)
+    if kw["nonfinite"]:  # k // 4 at -inf, 5% each at +inf and NaN, per set
+        kk, nn = max(1, kw["k"] // 4), n // 20
+        for bi in range(b):
+            pos = rng.permutation(n)
+            cand_off[bi, pos[:kk]] = -np.inf
+            cand_off[bi, pos[kk:kk + nn]] = np.inf
+            cand_off[bi, pos[kk + nn:kk + 2 * nn]] = np.nan
     return (lut_pad, qbuf, codes, ids, cand_off, q_off), kw["k"], kw["integer"]
 
 
 def adc_atol(lut_pad, cand_off=None, q_off=None) -> float:
     """1e-5 · (the largest |LUT sum| + max |q_off| + max |cand_off|), at
-    least 1e-5."""
-    lut = torch.as_tensor(lut_pad).float()
-    top = float(lut.abs().amax(-1).sum(-1).max()) if lut.numel() else 0.0
+    least 1e-5, over the finite entries (a non-finite one gives a distance
+    that is not finite, which is compared exactly)."""
+    def finite_abs(a):
+        a = torch.as_tensor(a).float().abs()
+        return torch.where(torch.isfinite(a), a, 0.0)
+
+    lut = finite_abs(lut_pad)
+    top = float(lut.amax(-1).sum(-1).max()) if lut.numel() else 0.0
     for off in (cand_off, q_off):
         if off is not None and torch.as_tensor(off).numel():
-            top += float(torch.as_tensor(off).abs().max())
+            top += float(finite_abs(off).max())
     return 1e-5 * max(top, 1.0)
 
 

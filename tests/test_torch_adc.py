@@ -24,6 +24,10 @@ from repro_torch.kernels import pq_adc as adc_mod
 from repro_torch.kernels import ref as tref
 
 IMPLS = ["ref", "interpret"]
+# The JAX top-k kernels keep the id beside a -inf distance, where their
+# oracles and the port write -1: that case is held against impl="ref" alone.
+TOPK_CASES = [(case, impl) for case in rt.ADC_CASES for impl in IMPLS
+              if (case, impl) != ("non-finite distances", "interpret")]
 
 
 def _expanded(case, seed):
@@ -56,8 +60,7 @@ def test_pq_adc_plain_matches_jax(case, jax_impl):
         np.testing.assert_allclose(got.numpy(), want, rtol=rt.RTOL, atol=rt.adc_atol(lut[b]))
 
 
-@pytest.mark.parametrize("jax_impl", IMPLS)
-@pytest.mark.parametrize("case", rt.ADC_CASES)
+@pytest.mark.parametrize("case,jax_impl", TOPK_CASES)
 def test_pq_adc_topk_plain_matches_jax(case, jax_impl):
     (lut, codes, ids, coff, qoff), k, exact = _expanded(case, 21)
     for b in (0, 1):  # bucket 0 holds no valid candidate
@@ -74,8 +77,7 @@ def test_pq_adc_topk_plain_matches_jax(case, jax_impl):
             assert bool(torch.isinf(td).all()) and bool((ti == -1).all())
 
 
-@pytest.mark.parametrize("jax_impl", IMPLS)
-@pytest.mark.parametrize("case", rt.ADC_CASES)
+@pytest.mark.parametrize("case,jax_impl", TOPK_CASES)
 def test_pq_adc_topk_batched_plain_matches_jax(case, jax_impl):
     (lut, codes, ids, coff, qoff), k, exact = _expanded(case, 22)
     jd, ji = jops.pq_adc_topk_batched(jnp.asarray(lut), jnp.asarray(codes), jnp.asarray(ids), k,

@@ -267,6 +267,38 @@ def test_pq_adc_topk_equals_stable_topk_of_pq_adc(cuda_device):
 
 
 @pytest.mark.cuda
+def test_adc_topk_kernels_sort_a_negative_nan_as_the_plain_version(cuda_device):
+    """With one subspace and no offsets a LUT entry reaches the selection as it
+    is: a NaN whose sign bit is set sorts before every number, as the plain
+    version's torch.sort puts it on the card (on the CPU it puts every NaN
+    last), in the flat (split), batched and qbuf forms; its id is -1. Equal
+    bit for bit, NaNs included."""
+    def same_bits(got, want):
+        return all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+                   for g, w in zip(got, want))
+
+    g = torch.Generator().manual_seed(36)
+    rows, n, ks, k = 12, 2048, 256, 16  # 12 and 9 NaN candidates in the two sets
+    lut = torch.rand((rows, 1, ks), generator=g)
+    lut[:, 0, 3] = torch.tensor([-4194304], dtype=torch.int32).view(torch.float32)  # 0xffc00000
+    codes = torch.randint(0, ks, (2, n, 1), generator=g, dtype=torch.uint8)
+    ids = torch.arange(2 * n, dtype=torch.int32).reshape(2, n)
+    lut, codes, ids = lut.to(cuda_device), codes.to(cuda_device), ids.to(cuda_device)
+    got = adc_mod.pq_adc_topk(lut, codes[0], ids[0], k)
+    assert same_bits(got, tref.pq_adc_topk_ref(lut, codes[0], ids[0], k))
+    lut_b = lut[None].expand(2, -1, -1, -1).contiguous()
+    got = adc_mod.pq_adc_topk_batched(lut_b, codes, ids, k)
+    assert same_bits(got, tref.pq_adc_topk_batched_ref(lut_b, codes, ids, k))
+    lut_pad = torch.cat([lut, torch.zeros_like(lut[:1])])
+    qbuf = torch.arange(rows, dtype=torch.int32, device=cuda_device)[None].repeat(2, 1)
+    got = adc_mod.pq_adc_topk_qbuf(lut_pad, qbuf, codes, ids, k)
+    assert same_bits(got, tref.pq_adc_topk_qbuf_ref(lut_pad, qbuf, codes, ids, k))
+    d, i = got
+    assert bool(torch.isnan(d[..., 0]).all()) and bool(torch.isfinite(d[..., -1]).all())
+    assert bool((i[..., 0] == -1).all()) and bool((i[..., -1] >= 0).all())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", rt.ADC_CASES)
 def test_pq_adc_topk_batched_kernel_equals_plain_and_qbuf(cuda_device, case):
     """Every row is scanned (the last row of the last bucket too: an identity
