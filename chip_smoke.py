@@ -9,6 +9,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   3. edges   — each kernel against its plain PyTorch version on the card, at
                repro_torch.testing's edge cases (padding ids, k > pool,
                duplicate ids, exact ties, non-finite distances, bf16 store,
+               for the L2 scans distances falling along each set, one
+               distance for every candidate, sets ten times k long, ||c||^2
+               overflowing to +inf, a hot bucket over several slot groups,
                residual offsets, uint16 codes, empty slots, buckets and rows
                with nothing valid, ties across the flat scan's candidate
                ranges; for the ADC selection, distances falling along each
@@ -36,9 +39,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                cuda vs ref;
   6. kernels — each kernel against its plain version on the inputs the main
                paths gave it, timed with CUDA events beside its bound;
-               pq_adc_topk_qbuf also at the rerank-16 path's stage 1
+               l2_topk_qbuf also with every dispatch slot empty and over
+               the store padded to lira-ann-q's capacity of 65,536 (equal
+               bit for bit), its launch shape (slots a group, shared memory,
+               blocks an SM) and how its work spreads over its work items
+               (the heaviest item's share); pq_adc_topk_qbuf also at the rerank-16 path's stage 1
                (rk = 1,600) and with every dispatch slot empty, and its
-               launch shape (slots a block, blocks an SM) at both rk;
+               launch shape at both rk;
   7. kmeans  — the build's k-means over the 1M base (B = 1024, 20 Lloyd
                iterations from one k-means++ start): two plain fits must be
                equal bit for bit, a fit through kmeans_assign (21 launches)
@@ -48,7 +55,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                the card;
   8. flat    — l2_topk of the first 1,000 queries over the whole base at
                k = 100, held against its plain version and against exact
-               ground truth (up to ties at the 100th place), timed;
+               ground truth (up to ties at the 100th place), timed; its
+               candidate ranges and launch shape are logged;
   9. batched — l2_topk_batched of the f32 path's first dispatch buffer
                expanded to [1024, 128, 128] against the store, held against
                its plain version and, on the occupied slots, against
@@ -269,6 +277,16 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def qbuf_item_work(items, cand_ids):
+    """Occupied slots x valid candidates of each work item of l2_topk_qbuf's
+    plan (columns bucket, first slot, rows, c_lo, c_hi, ...), as float64."""
+    import torch
+
+    cum = torch.nn.functional.pad((cand_ids >= 0).cumsum(1), (1, 0)).cpu().double()
+    b, rows, lo, hi = items[:, 0], items[:, 2], items[:, 3], items[:, 4]
+    return rows.double() * (cum[b, hi] - cum[b, lo])
+
+
 def l2_bound(q_pad, qbuf, cands, cand_ids, k):
     """Least time for this run's scan: each input read once (the query
     plane, qbuf, and the ids and valid vectors of every partition that has an
@@ -474,15 +492,16 @@ def flat_phase(dev, queries, base, gtd, gti, k: int):
                                 what="l2_topk vs exact ground truth")
     same = int((i_k.cpu().numpy() == gti[:nq]).all(1).sum())
     splits = l2_mod.scan_splits(1, nq, c.shape[0], c.shape[1], k, dev)
+    shape = l2_mod.scan_occupancy(c, k)
     log(f"flat   l2_topk of {nq} queries over {c.shape[0]} points, k {k} ({splits} candidate "
-        f"ranges): kernel vs plain ok (max abs err {err:.3g}); vs exact ground truth ok "
-        f"(max abs err {gerr:.3g}, {same} of {nq} rows equal id for id)")
+        f"ranges; launch shape {shape}): kernel vs plain ok (max abs err {err:.3g}); vs exact "
+        f"ground truth ok (max abs err {gerr:.3g}, {same} of {nq} rows equal id for id)")
     ms = time_ms(lambda: l2_mod.l2_topk(q, c, ids, k), 5)
     plain_ms = time_ms(lambda: kops.l2_topk(q, c, ids, k, impl="ref"), 1, 1)
     return kernel_entry("l2_topk", "l2_topk.cu", "src/repro/kernels/l2_topk.py:69", launches,
                         err, ms, plain_ms, bound_entry(*scan_bound(q[None], c[None], ids[None], k)),
                         {"q": list(q.shape), "cands": list(c.shape), "k": k, "splits": splits,
-                         "rows_equal_to_ground_truth": same})
+                         "launch": shape, "rows_equal_to_ground_truth": same})
 
 
 def batched_phase(qp, qb, vec, ids, k: int):
@@ -775,6 +794,7 @@ def main(n_base: int = N_BASE, n_queries: int = N_QUERIES) -> int:
         return 1
     t_start = time.perf_counter()
     from repro_torch import testing as rt
+    from repro_torch.configs.lira_ann import CONFIG_QUANTIZED
     from repro_torch.core import ground_truth as gt
     from repro_torch.core.metrics import recall_at_k
     from repro_torch.data.synthetic import make_vector_dataset
@@ -912,14 +932,48 @@ def main(n_base: int = N_BASE, n_queries: int = N_QUERIES) -> int:
         bound_entry(*l2_bound(qp, qb, vec, ids, k)),
         {"q_pad": list(qp.shape), "qbuf": list(qb.shape), "cands": list(vec.shape), "k": k,
          "occupied_slots": int(rt.occupied(qp, qb).sum())}))
-    # one block scans one bucket: the heaviest bucket's share of the work
-    # bounds what the other 131 SMs can hide
-    work = rt.occupied(qp, qb).sum(1).double() * (ids >= 0).sum(1).double()
-    log(f"kernel l2_topk_qbuf per-bucket work (occupied slots x valid candidates): "
-        f"max {int(work.max())}, mean {float(work.mean()):.0f}, heaviest bucket "
-        f"{100 * float(work.max() / work.sum()):.2f}% of the total; max occupied slots "
+    # the scan's work items (G occupied slots of one bucket, or one candidate
+    # range of a heavy group), from its own plan kernel: the heaviest item's
+    # share of the work bounds what the other SMs can hide
+    shape = l2_mod.occupancy(vec, k)
+    pl = l2_mod.plan(qp, qb, vec, ids, k)
+    work = qbuf_item_work(pl["items"], ids)
+    log(f"kernel l2_topk_qbuf launch shape at k {k}: {shape} (d {vec.shape[2]}, {vec.dtype})")
+    log(f"kernel l2_topk_qbuf work items (occupied slots x valid candidates): {work.numel()}, "
+        f"{pl['split_items']} of them candidate ranges of split groups; max {int(work.max())}, "
+        f"mean {float(work.mean()):.0f}, heaviest item {100 * float(work.max() / work.sum()):.2f}%"
+        f" of the total {pl['total_work']}; partial lists {pl['partial_lists']} of the pool's "
+        f"{pl['pool_lists']}; workspace {pl['workspace_bytes']} B; max occupied slots a bucket "
         f"{int(rt.occupied(qp, qb).sum(1).max())}, max valid candidates "
         f"{int((ids >= 0).sum(1).max())}")
+    # what the empty slots cost: the same launch with every slot empty
+    qb_empty = torch.full_like(qb, qp.shape[0] - 1)
+    ms_empty = time_ms(lambda: l2_mod.l2_topk_qbuf(qp, qb_empty, vec, ids, k), 10)
+    log(f"kernel l2_topk_qbuf with every one of the {qb.numel()} slots empty (inf / -1 "
+        f"written, nothing scanned): {ms_empty:.3f} ms at k {k}")
+    del qb_empty
+    # the same inputs in a store padded to the configuration's capacity: the
+    # same results, and what the padding costs
+    cap = CONFIG_QUANTIZED.capacity
+    big = vec.new_zeros((vec.shape[0], cap, vec.shape[2]))
+    big[:, :vec.shape[1]] = vec
+    big_ids = ids.new_full((ids.shape[0], cap), -1)
+    big_ids[:, :ids.shape[1]] = ids
+    same = all(torch.equal(a, b) for a, b in zip(l2_mod.l2_topk_qbuf(qp, qb, big, big_ids, k),
+                                                 l2_mod.l2_topk_qbuf(qp, qb, vec, ids, k)))
+    if not same:
+        raise AssertionError(f"l2_topk_qbuf: a store padded to capacity {cap} changed the result")
+    ms_big = time_ms(lambda: l2_mod.l2_topk_qbuf(qp, qb, big, big_ids, k), 10)
+    pl_big = l2_mod.plan(qp, qb, big, big_ids, k)
+    log(f"kernel l2_topk_qbuf over the store padded to capacity {cap}: equal bit for bit, "
+        f"{ms_big:.3f} ms (at {vec.shape[1]}: {ms:.3f}); {len(pl_big['items'])} items, "
+        f"workspace {pl_big['workspace_bytes']} B")
+    del big, big_ids
+    torch.cuda.empty_cache()  # the padded store's 34 GB go back to the card
+    kernels[-1]["shapes"].update(launch=shape, all_empty_ms=ms_empty,
+                                 heaviest_item_share=float(work.max() / work.sum()),
+                                 split_items=pl["split_items"], padded_capacity=cap,
+                                 padded_ms=ms_big)
     (pd, pi, k), _ = f32_in["dedup_topk"]
     err = compare_dedup("dedup_topk main-path inputs", pd, pi, k)
     ms = time_ms(lambda: dd_mod.dedup_topk(pd, pi, k), 10)

@@ -40,9 +40,9 @@
 #pragma once
 
 #include <cuda_runtime.h>
-#include <math_constants.h>
 #include <stdint.h>
 
+#include "scan_common.cuh"
 #include "topk_select.cuh"
 
 namespace adcscan {
@@ -50,12 +50,13 @@ namespace adcscan {
 using topksel::kAllLanes;
 using topksel::Selector;
 
-constexpr int kMaxGroup = 8;         // rows (warps) a block at most
-constexpr int kUnroll = 4;           // groups of 32 candidates loaded together
-constexpr size_t kMaxSmem = 232448;  // 227 KB, the most a block can opt into
-constexpr size_t kHead = 16;         // the block's range end
+using scancommon::align16;
+using scancommon::kMaxSmem;
+using scancommon::Plan;
 
-__host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~(size_t)15; }
+constexpr int kMaxGroup = 8;  // rows (warps) a block at most
+constexpr int kUnroll = 4;    // groups of 32 candidates loaded together
+constexpr size_t kHead = 16;  // the block's range end
 
 // Shared memory of one row: its LUT, its list and its buffer.
 __host__ __device__ inline size_t row_smem(int m, int ks, int k) {
@@ -65,14 +66,6 @@ __host__ __device__ inline size_t row_smem(int m, int ks, int k) {
 inline size_t smem_bytes(int G, int m, int ks, int k) {
   return kHead + (size_t)G * row_smem(m, ks, k);
 }
-
-// A kernel's launch at some widths: rows (warps) a block, its shared
-// memory, and blocks resident on an SM.
-struct Plan {
-  int G = 0;  // 0 when not even one row fits a block
-  size_t smem = 0;
-  int per_sm = 0;
-};
 
 // The group size with the most rows resident on an SM for `kernel` (ties to
 // the larger group), from the occupancy calculator.
@@ -137,47 +130,6 @@ __device__ __forceinline__ float sum_row(const float* __restrict__ L, int m, int
   return acc;
 }
 
-// The range end: the last valid id of [c_lo, c_hi), read as 16-byte vectors
-// from the first aligned id on, by the whole block, four loads in flight a
-// thread (c_lo - 1 where it finds none); the unaligned head goes to warp 0.
-__device__ __forceinline__ int head_end(const int* ib, int c_lo, int c_hi) {
-  const int skip = (int)((16 - (reinterpret_cast<uintptr_t>(ib + c_lo) & 15)) & 15) / 4;
-  return min(c_hi, c_lo + skip);
-}
-
-__device__ __forceinline__ int last_valid_head(const int* __restrict__ ib, int c_lo, int c_hi,
-                                               int lane) {
-  const int c = c_lo + lane;
-  const int last = c < head_end(ib, c_lo, c_hi) && __ldg(ib + c) >= 0 ? c : c_lo - 1;
-  return __reduce_max_sync(kAllLanes, last);
-}
-
-__device__ __forceinline__ int last_valid_body(const int* __restrict__ ib, int c_lo, int c_hi) {
-  const int a0 = head_end(ib, c_lo, c_hi);
-  const int n4 = (c_hi - a0) / 4;
-  const int4* p4 = reinterpret_cast<const int4*>(ib + a0);
-  int last = c_lo - 1;
-  for (int t0 = threadIdx.x; t0 < n4; t0 += 4 * blockDim.x) {
-    int4 v[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int t = t0 + u * blockDim.x;
-      v[u] = t < n4 ? __ldg(p4 + t) : make_int4(-1, -1, -1, -1);
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int c = a0 + 4 * (t0 + u * blockDim.x);
-      if (v[u].x >= 0) last = max(last, c);
-      if (v[u].y >= 0) last = max(last, c + 1);
-      if (v[u].z >= 0) last = max(last, c + 2);
-      if (v[u].w >= 0) last = max(last, c + 3);
-    }
-  }
-  for (int c = a0 + 4 * n4 + threadIdx.x; c < c_hi; c += blockDim.x)  // the tail
-    if (__ldg(ib + c) >= 0) last = max(last, c);
-  return last;
-}
-
 // Scan candidates [c_lo, c_hi) of one set (codes cb [*, m], ids ib, offsets
 // cob or null) for the group's ns slots and write slot i's list to
 // od / oi [i * k, (i + 1) * k): the id ib[position] (-1 beside a distance
@@ -204,29 +156,12 @@ __device__ void scan_group(unsigned char* smem, const float* __restrict__ lut, i
   const int n_occ = __popc(occ);
 
   // empty slots: warp w writes slot w
-  if (warp < ns && !((occ >> warp) & 1u)) {
-    float* d = od + (size_t)warp * k;
-    int* o = oi + (size_t)warp * k;
-    if ((k & 3) == 0) {
-      for (int i = lane; i < k / 4; i += 32) {
-        reinterpret_cast<float4*>(d)[i] =
-            make_float4(CUDART_INF_F, CUDART_INF_F, CUDART_INF_F, CUDART_INF_F);
-        reinterpret_cast<int4*>(o)[i] = make_int4(-1, -1, -1, -1);
-      }
-    } else {
-      for (int i = lane; i < k; i += 32) { d[i] = CUDART_INF_F; o[i] = -1; }
-    }
-  }
+  if (warp < ns && !((occ >> warp) & 1u))
+    scancommon::fill_empty(od + (size_t)warp * k, oi + (size_t)warp * k, k, lane);
   if (n_occ == 0) return;  // the whole block leaves together
 
   // end the range at its last valid id (the block's only barriers)
-  int* last_s = reinterpret_cast<int*>(smem);
-  if (threadIdx.x == 0) *last_s = c_lo - 1;
-  __syncthreads();
-  if (threadIdx.x < 32) atomicMax(last_s, last_valid_head(ib, c_lo, c_hi, lane));
-  atomicMax(last_s, last_valid_body(ib, c_lo, c_hi));
-  __syncthreads();
-  const int c_end = *last_s + 1;
+  const int c_end = scancommon::range_end(reinterpret_cast<int*>(smem), ib, c_lo, c_hi);
   if (warp >= n_occ) return;
 
   for (int t = 0; t < warp; ++t) occ &= occ - 1;

@@ -1,9 +1,10 @@
 // The merge of partial top-k lists, shared by the split scans (l2_topk.cu,
-// pq_adc_topk.cu): a scan split along its candidates writes, per row and
-// range, a list of (dist, position) pairs; this kernel merges a row's lists,
-// one warp per row, with the bulk selection of topk_select.cuh under the
-// same (dist, position) key, so a lower position still wins an exact tie,
-// and writes the ids (-1 beside a distance that is not finite, as the plain
+// pq_adc_topk.cu; l2_topk_qbuf.cu merges in its scan kernel with
+// offer_list): a scan split along its candidates writes, per row and range,
+// a list of (dist, position) pairs; this kernel merges a row's lists, one
+// warp per row, with the bulk selection of topk_select.cuh under the same
+// (dist, position) key, so a lower position still wins an exact tie, and
+// writes the ids (-1 beside a distance that is not finite, as the plain
 // versions).
 #pragma once
 
@@ -18,6 +19,19 @@ constexpr int kWarps = kThreads / 32;
 
 // Shared memory one merge block needs, in bytes.
 inline size_t merge_smem(int k) { return (size_t)kWarps * topksel::row_bytes(k); }
+
+// Offer one partial list (pd, pc [k], positions < 0 unfilled) to a warp's
+// selection. The loads go to L2 (__ldcg), so a list another block wrote
+// in the same kernel, before a fence, is read as written.
+__device__ __forceinline__ void offer_list(topksel::Selector& sel, const float* pd,
+                                           const int* pc, int k, int lane) {
+  for (int h = 0; h < k; h += 32) {
+    const int i = h + lane;
+    const int c = i < k ? __ldcg(pc + i) : -1;
+    const float dist = i < k ? __ldcg(pd + i) : 0.f;
+    sel.offer(c >= 0, topksel::pack(dist, c), lane);
+  }
+}
 
 // One warp per (bucket, query) row: merge its `splits` partial lists
 // (pd, pc [B, splits, Q, k], positions < 0 unfilled) into od / oi [B, Q, k],
@@ -35,12 +49,7 @@ topk_merge_kernel(const float* __restrict__ pd, const int* __restrict__ pc,
   sel.init(smem + warp * topksel::row_bytes(k), k);
   for (int s = 0; s < splits; ++s) {
     const size_t base = (((size_t)b * splits + s) * Q + qi) * k;
-    for (int h = 0; h < k; h += 32) {
-      const int i = h + lane;
-      const int c = i < k ? pc[base + i] : -1;
-      const float dist = i < k ? pd[base + i] : 0.f;
-      sel.offer(c >= 0, topksel::pack(dist, c), lane);
-    }
+    offer_list(sel, pd + base, pc + base, k, lane);
   }
   sel.flush(lane);
   sel.store(od + row * k, oi + row * k, ids + (size_t)b * C, lane);

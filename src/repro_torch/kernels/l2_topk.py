@@ -25,34 +25,47 @@ _DTYPES = {torch.float32: "l2_topk_qbuf_f32", torch.bfloat16: "l2_topk_qbuf_bf16
 def _lib():
     lib = _build.load("l2_topk_qbuf")
     if not getattr(lib, "_typed", False):
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         for fn in _DTYPES.values():
             f = getattr(lib, fn)
-            f.argtypes = [ptr, i32, ptr, i32, i32, ptr, ptr, i32, i32, i32, ptr, ptr, ptr]
+            f.argtypes = [ptr, i32, ptr, i32, i32, ptr, ptr, i32, i32, i32, ptr, ptr, ptr, ptr]
             f.restype = i32
-        lib.l2_topk_qbuf_smem_bytes.argtypes = [i32, i32, i32]
-        lib.l2_topk_qbuf_smem_bytes.restype = ctypes.c_longlong
+        for fn in ("l2_topk_qbuf_group", "l2_topk_qbuf_smem_bytes", "l2_topk_qbuf_blocks_per_sm"):
+            getattr(lib, fn).argtypes = [i32, i32, i32]
+        lib.l2_topk_qbuf_group.restype = i32
+        lib.l2_topk_qbuf_blocks_per_sm.restype = i32
+        lib.l2_topk_qbuf_smem_bytes.restype = i64
+        lib.l2_topk_qbuf_workspace.argtypes = [i32, i32, i32, i32, i32, ctypes.POINTER(i64)]
+        lib.l2_topk_qbuf_workspace.restype = None
+        lib.l2_topk_qbuf_plan.argtypes = [ptr, i32, i32, i32, ptr, i32, i32, i32, i32, ptr, ptr,
+                                          ptr, ptr]
+        lib.l2_topk_qbuf_plan.restype = i32
         lib._typed = True
     return lib
 
 
-def l2_topk_qbuf(q_pad: torch.Tensor, qbuf: torch.Tensor, cands: torch.Tensor,
-                 cand_ids: torch.Tensor, k: int):
-    """Top-k scan of every bucket's dispatched queries.
+def occupancy(cands: torch.Tensor, k: int) -> dict:
+    """The dispatch-buffer scan's launch shape for the store ``cands``
+    [B, C, d] on the current device: dispatch slots a group, blocks resident
+    on an SM (the scan launches that many for every SM), shared memory a
+    block."""
+    d, size = cands.shape[-1], cands.element_size()
+    lib = _lib()
+    with torch.cuda.device(cands.device):
+        return {"slots_per_block": lib.l2_topk_qbuf_group(d, k, size),
+                "blocks_per_sm": lib.l2_topk_qbuf_blocks_per_sm(d, k, size),
+                "smem_bytes": lib.l2_topk_qbuf_smem_bytes(d, k, size)}
 
-    q_pad    [R, d]     queries in the store dtype; row R-1 is the sentinel
-    qbuf     [B, S]     int32 query row per dispatch slot, R-1 = empty
-    cands    [B, C, d]  partition vectors (float32 or bfloat16)
-    cand_ids [B, C]     int32 ids, < 0 = padding / hole
 
-    Returns ([B, S, k] f32 ascending dists, [B, S, k] int32 ids), inf / -1
-    where fewer than k valid candidates exist. On the card, empty slots come
-    back as inf / -1 without being scanned; the plain version scans them
-    against the sentinel row. Callers drop those slots either way.
-    """
-    global launches
-    if cands.device.type == "cpu":
-        return _ref.l2_topk_qbuf_ref(q_pad, qbuf, cands, cand_ids, k)
+def _workspace(lib, b: int, s: int, d: int, k: int, size: int, device):
+    """(uint8 workspace, byte offset of its items, items it holds, partial
+    lists its pool holds) for one launch."""
+    out = (ctypes.c_longlong * 4)()
+    lib.l2_topk_qbuf_workspace(b, s, d, k, size, out)
+    return torch.empty(max(out[0], 16), dtype=torch.uint8, device=device), out[1], out[2], out[3]
+
+
+def _check(q_pad, qbuf, cands, cand_ids, k):
     if cands.device.type != "cuda":
         raise ValueError(f"l2_topk_qbuf: unsupported device {cands.device}")
     if cands.dtype not in _DTYPES:
@@ -72,21 +85,76 @@ def l2_topk_qbuf(q_pad: torch.Tensor, qbuf: torch.Tensor, cands: torch.Tensor,
                          f"{tuple(cand_ids.shape)} vs store {tuple(cands.shape)}")
     if k < 1:
         raise ValueError(f"l2_topk_qbuf: k={k}")
-    q_pad, qbuf = q_pad.contiguous(), qbuf.contiguous()
-    cands, cand_ids = cands.contiguous(), cand_ids.contiguous()
-    s = qbuf.shape[1]
-    lib = _lib()
+    return q_pad.contiguous(), qbuf.contiguous(), cands.contiguous(), cand_ids.contiguous()
+
+
+def _raise(lib, err, s, d, k, cands):
+    # e.g. a block that needs more shared memory than it can opt into
+    _build.check(err, f"l2_topk_qbuf (S={s}, d={d}, k={k}: "
+                      f"{lib.l2_topk_qbuf_smem_bytes(d, k, cands.element_size())} B of "
+                      f"shared memory per block)")
+
+
+def plan(q_pad: torch.Tensor, qbuf: torch.Tensor, cands: torch.Tensor,
+         cand_ids: torch.Tensor, k: int) -> dict:
+    """The work items the dispatch-buffer scan makes of these inputs on the
+    card (its count and plan kernels alone; not a launch of the scan):
+    ``items`` [n, 8] int64 on the CPU, columns bucket, first occupied slot,
+    rows, c_lo, c_hi, ranges of the group, first partial list (-1 unsplit),
+    range; the total work (occupied slots x valid end, summed over buckets);
+    the partial lists the pool holds and those the splits use; the split
+    items; and the workspace's bytes."""
+    q_pad, qbuf, cands, cand_ids = _check(q_pad, qbuf, cands, cand_ids, k)
+    (b, c, d), s, lib = cands.shape, qbuf.shape[1], _lib()
+    with torch.cuda.device(cands.device):
+        ws, at, cap, pool = _workspace(lib, b, s, d, k, cands.element_size(), cands.device)
+        od = torch.empty((b, s, k), dtype=torch.float32, device=cands.device)
+        oi = torch.empty((b, s, k), dtype=torch.int32, device=cands.device)
+        err = lib.l2_topk_qbuf_plan(qbuf.data_ptr(), q_pad.shape[0], b, s, cand_ids.data_ptr(),
+                                    c, d, k, cands.element_size(), ws.data_ptr(),
+                                    od.data_ptr(), oi.data_ptr(),
+                                    torch.cuda.current_stream().cuda_stream)
+    if err:
+        _raise(lib, err, s, d, k, cands)
+    head = ws[:24].cpu()
+    front, back = (int(v) for v in head[:8].view(torch.int32))
+    items = ws[at:at + cap * 32].view(torch.int32).view(cap, 8).cpu().long()
+    items = torch.cat([items[:front], items[cap - back:]])
+    split = items[:, 5] > 1
+    return {"items": items, "total_work": int(head[16:24].view(torch.int64)[0]),
+            "pool_lists": pool, "partial_lists": int(items[split, 2].sum()),
+            "split_items": int(split.sum()), "workspace_bytes": ws.numel()}
+
+
+def l2_topk_qbuf(q_pad: torch.Tensor, qbuf: torch.Tensor, cands: torch.Tensor,
+                 cand_ids: torch.Tensor, k: int):
+    """Top-k scan of every bucket's dispatched queries.
+
+    q_pad    [R, d]     queries in the store dtype; row R-1 is the sentinel
+    qbuf     [B, S]     int32 query row per dispatch slot, R-1 = empty
+    cands    [B, C, d]  partition vectors (float32 or bfloat16)
+    cand_ids [B, C]     int32 ids, < 0 = padding / hole
+
+    Returns ([B, S, k] f32 ascending dists, [B, S, k] int32 ids), inf / -1
+    where fewer than k valid candidates exist. On the card, empty slots come
+    back as inf / -1 without being scanned; the plain version scans them
+    against the sentinel row. Callers drop those slots either way.
+    """
+    global launches
+    if cands.device.type == "cpu":
+        return _ref.l2_topk_qbuf_ref(q_pad, qbuf, cands, cand_ids, k)
+    q_pad, qbuf, cands, cand_ids = _check(q_pad, qbuf, cands, cand_ids, k)
+    (b, c, d), s, lib = cands.shape, qbuf.shape[1], _lib()
     od = torch.empty((b, s, k), dtype=torch.float32, device=cands.device)
     oi = torch.empty((b, s, k), dtype=torch.int32, device=cands.device)
     with torch.cuda.device(cands.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        ws = _workspace(lib, b, s, d, k, cands.element_size(), cands.device)[0]
         err = getattr(lib, _DTYPES[cands.dtype])(
             q_pad.data_ptr(), q_pad.shape[0], qbuf.data_ptr(), b, s,
-            cands.data_ptr(), cand_ids.data_ptr(), c, d, k,
-            od.data_ptr(), oi.data_ptr(), stream)
-    if err:  # e.g. a block that needs more shared memory than it can opt into
-        _build.check(err, f"l2_topk_qbuf (S={s}, d={d}, k={k}: "
-                          f"{lib.l2_topk_qbuf_smem_bytes(s, d, k)} B of shared memory per block)")
+            cands.data_ptr(), cand_ids.data_ptr(), c, d, k, ws.data_ptr(),
+            od.data_ptr(), oi.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if err:
+        _raise(lib, err, s, d, k, cands)
     launches += 1
     return od, oi
 
@@ -109,7 +177,10 @@ def _scan_lib():
             f = getattr(lib, fn)
             f.argtypes = [ptr, i32, i32, ptr, ptr, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr]
             f.restype = i32
-        lib.l2_topk_smem_bytes.argtypes = [i32, i32]
+        for fn in ("l2_topk_group", "l2_topk_smem_bytes", "l2_topk_blocks_per_sm"):
+            getattr(lib, fn).argtypes = [i32, i32, i32]
+        lib.l2_topk_group.restype = i32
+        lib.l2_topk_blocks_per_sm.restype = i32
         lib.l2_topk_smem_bytes.restype = ctypes.c_longlong
         lib.l2_topk_splits.argtypes = [i32, i32, i32, i32, i32]
         lib.l2_topk_splits.restype = i32
@@ -118,11 +189,23 @@ def _scan_lib():
 
 
 def scan_splits(b: int, q: int, c: int, d: int, k: int, device) -> int:
-    """Ranges of whole candidate tiles the kernel splits each of b candidate
-    sets of c rows into for q queries each, on ``device``
+    """Ranges of whole 256-candidate units the kernel splits each of b
+    candidate sets of c rows into for q queries each, on ``device``
     (``l2_topk_splits`` in ``csrc/l2_topk.cu``)."""
     with torch.cuda.device(device):
         return _scan_lib().l2_topk_splits(b, q, c, d, k)
+
+
+def scan_occupancy(cands: torch.Tensor, k: int) -> dict:
+    """The flat and batched scans' launch shape at these widths on the
+    current device: query rows a block, blocks resident on an SM, shared
+    memory a scan block."""
+    d, size = cands.shape[-1], cands.element_size()
+    lib = _scan_lib()
+    with torch.cuda.device(cands.device):
+        return {"rows_per_block": lib.l2_topk_group(d, k, size),
+                "blocks_per_sm": lib.l2_topk_blocks_per_sm(d, k, size),
+                "smem_bytes": lib.l2_topk_smem_bytes(d, k, size)}
 
 
 def _scan(q, cands, cand_ids, k: int, what: str):
@@ -161,7 +244,8 @@ def _scan(q, cands, cand_ids, k: int, what: str):
             None if pd is None else pd.data_ptr(), None if pc is None else pc.data_ptr(),
             od.data_ptr(), oi.data_ptr(), stream)
     if err:
-        _build.check(err, f"{what} (d={d}, k={k}: {lib.l2_topk_smem_bytes(d, k)} B of shared "
+        _build.check(err, f"{what} (d={d}, k={k}: "
+                          f"{lib.l2_topk_smem_bytes(d, k, cands.element_size())} B of shared "
                           f"memory per block, {splits} splits)")
     return od, oi
 

@@ -33,11 +33,14 @@ def occupied(q_pad, qbuf):
 
 
 def l2_atol(queries, cands, cand_ids) -> float:
-    """1e-5 · (max ‖q‖² + max ‖c‖² over the valid candidates), at least 1e-5."""
+    """1e-5 · (max ‖q‖² + max ‖c‖² over the valid candidates whose ‖c‖² is
+    finite), at least 1e-5 (a candidate whose ‖c‖² overflows gives a distance
+    that is not finite, which is compared exactly)."""
     q, c = torch.as_tensor(queries).float(), torch.as_tensor(cands).float()
-    valid = torch.as_tensor(cand_ids) >= 0
     qn = float((q * q).sum(-1).max()) if q.shape[0] else 0.0
-    cn = float((c * c).sum(-1)[valid].max()) if bool(valid.any()) else 0.0
+    norms = (c * c).sum(-1)
+    keep = (torch.as_tensor(cand_ids) >= 0) & torch.isfinite(norms)
+    cn = float(norms[keep].max()) if bool(keep.any()) else 0.0
     return 1e-5 * max(qn + cn, 1.0)
 
 
@@ -100,6 +103,25 @@ DEDUP_WIDTHS = {"small": dict(q=6, p=64, n_ids=20, k=8),
                 "main": dict(q=8, p=102_400, n_ids=50_000, k=100)}
 
 
+# The cases of every L2 scan that stress its selection (case -> overrides of
+# the width's defaults, a function of the width).
+_L2_SELECTION_CASES = {
+    # candidate i is (C + 3 - i) on the first axis: the distance falls along
+    # each set for every query, so every candidate enters the list and the
+    # selection's buffer merges many times; exact distances
+    "descending distances": lambda w: dict(integer=True, rows="descending"),
+    # every candidate the same small-integer row: one distance per query, so
+    # the lowest positions must win, across merges and ranges
+    "equal distances": lambda w: dict(integer=True, rows="equal"),
+    # C ten times k, as a hot partition gives
+    "long rows": lambda w: dict(c=10 * w["k"]),
+    # a component of 1e20 at a fifth of the candidates, and at every valid
+    # candidate of one set but k // 2: ||c||^2 overflows to +inf there, so
+    # that set has fewer than k finite distances; the plain versions write
+    # inf / -1 beside each
+    "overflowing distances": lambda w: dict(overflow=True),
+}
+
 # case -> overrides of the width's defaults (a function of the width)
 _L2_CASES = {
     "holes+padding": lambda w: {},
@@ -107,10 +129,15 @@ _L2_CASES = {
     "empty-slot rows": lambda w: dict(empty_frac=0.8),
     "all ids padding": lambda w: dict(hole_frac=1.0),
     "bf16 store": lambda w: dict(dtype="bfloat16"),
-    # exact distances; 80 slots span three of the kernel's slot chunks,
+    # exact distances; 80 slots span several of the kernel's slot groups,
     # and d = 13 pads to the kernel's float4 reads
     "exact ties": lambda w: dict(integer=True, hole_frac=0.0, pad_tail=0, d=13, s=80,
                                  empty_frac=0.0),
+    **_L2_SELECTION_CASES,
+    # one bucket with every one of 80 slots occupied (more than one of the
+    # kernel's slot groups) and the longest candidate list, with no hole,
+    # 10,000 candidates: more than one of the kernel's candidate ranges
+    "hot bucket": lambda w: dict(s=80, c=10_000, hot=True),
 }
 L2_CASES = tuple(_L2_CASES)
 
@@ -122,27 +149,70 @@ def l2_case(case: str, *, width: str = "small", seed: int = 0):
     valid candidate and the last bucket no occupied slot; the rest have
     holes (``hole_frac``), a padding tail and empty slots (``empty_frac``)."""
     w = L2_WIDTHS[width]
-    kw = {**w, "hole_frac": 0.15, "pad_tail": w["c"] // 6, "empty_frac": 0.3,
-          "integer": False, "dtype": "float32", **_L2_CASES[case](w)}
+    kw = {**w, "hole_frac": 0.15, "pad_tail": None, "empty_frac": 0.3, **_L2_DEFAULTS,
+          **_L2_CASES[case](w)}
     b, s, c, d, n_rows = (kw[n] for n in ("b", "s", "c", "d", "n_rows"))
     rng = np.random.default_rng(seed)
-    if kw["integer"]:
-        cands = rng.integers(-3, 4, (b, c, d)).astype(np.float32)
-        cands[:, 1::2] = cands[:, ::2][:, :c // 2]   # duplicate rows, distinct ids
-        q = rng.integers(-3, 4, (n_rows, d)).astype(np.float32)
-    else:
-        cands = (rng.normal(size=(b, c, d)) * 3).astype(np.float32)
-        q = (rng.normal(size=(n_rows, d)) * 3).astype(np.float32)
+    q, cands = _l2_rows(rng, kw, (n_rows,), b, c, d, "pairs")
     q_pad = np.concatenate([q, np.full((1, d), 1e9, np.float32)])
-    ids = rng.permutation(b * c).reshape(b, c).astype(np.int32)
-    ids[rng.random((b, c)) < kw["hole_frac"]] = -1
-    if kw["pad_tail"]:
-        ids[:, -kw["pad_tail"]:] = -1
+    ids = _l2_ids(rng, kw, b, c)
     ids[0] = -1
     qbuf = rng.integers(0, n_rows, (b, s)).astype(np.int32)
     qbuf[rng.random((b, s)) < kw["empty_frac"]] = n_rows
+    if kw["hot"]:  # bucket 1: every slot occupied, every candidate valid
+        qbuf[1] = rng.integers(0, n_rows, s)
+        ids[1] = rng.permutation(b * c)[:c]
     qbuf[-1] = n_rows
+    _l2_overflow(rng, kw, cands, ids, 1)
     return (q_pad, qbuf, cands, ids), kw["k"], kw["dtype"], kw["integer"]
+
+
+_L2_DEFAULTS = dict(integer=False, dtype="float32", rows="random", overflow=False, hot=False)
+
+
+def _l2_rows(rng, kw, q_shape, b, c, d, dup):
+    """Query rows [*q_shape, d] and candidates [b, c, d] for an L2 case: small
+    integers (``integer``; a candidate repeats another, ``dup``: "pairs" the
+    one before it, "halves" the one half a set before), rows falling along
+    each set or all equal (``rows``), or normal floats."""
+    if not kw["integer"]:
+        cands = (rng.normal(size=(b, c, d)) * 3).astype(np.float32)
+        return (rng.normal(size=(*q_shape, d)) * 3).astype(np.float32), cands
+    if kw["rows"] == "descending":
+        cands = np.zeros((b, c, d), np.float32)
+        cands[:, :, 0] = c + 3 - np.arange(c)
+    elif kw["rows"] == "equal":
+        cands = np.broadcast_to(rng.integers(-3, 4, d).astype(np.float32), (b, c, d)).copy()
+    else:
+        cands = rng.integers(-3, 4, (b, c, d)).astype(np.float32)
+        if dup == "pairs":
+            cands[:, 1::2] = cands[:, ::2][:, :c // 2]   # duplicate rows, distinct ids
+        else:
+            cands[:, c // 2:2 * (c // 2)] = cands[:, :c // 2]
+    return rng.integers(-3, 4, (*q_shape, d)).astype(np.float32), cands
+
+
+def _l2_ids(rng, kw, b, c):
+    """Distinct ids [b, c] with holes (``hole_frac``) and a padding tail."""
+    ids = rng.permutation(b * c).reshape(b, c).astype(np.int32)
+    ids[rng.random((b, c)) < kw["hole_frac"]] = -1
+    pad = c // 6 if kw["pad_tail"] is None else kw["pad_tail"]
+    if pad:
+        ids[:, -pad:] = -1
+    return ids
+
+
+def _l2_overflow(rng, kw, cands, ids, full):
+    """With ``overflow``: a component of 1e20 (its square overflows f32) at a
+    fifth of the candidates, and at every valid candidate of set ``full`` but
+    its first k // 2."""
+    if not kw["overflow"]:
+        return
+    hit = rng.random(ids.shape) < 0.2
+    hit[full] = True
+    hit[full, np.flatnonzero(ids[full] >= 0)[:kw["k"] // 2]] = False
+    b_i, c_i = np.nonzero(hit)
+    cands[b_i, c_i, rng.integers(0, cands.shape[2], b_i.size)] = 1e20
 
 
 _DEDUP_CASES = {
@@ -376,6 +446,7 @@ _L2_SCAN_CASES = {
     # the first under other ids, so exact ties lie half a set apart, in other
     # candidate ranges; d = 13 pads to the kernel's float4 reads
     "exact ties across splits": lambda w: dict(integer=True, hole_frac=0.0, pad_tail=0, d=13),
+    **_L2_SELECTION_CASES,
 }
 L2_SCAN_CASES = tuple(_L2_SCAN_CASES)
 
@@ -387,20 +458,11 @@ def l2_scan_case(case: str, *, width: str = "small", seed: int = 0):
     case (the flat scan takes set 0); the rest have holes (``hole_frac``)
     and a padding tail."""
     w = L2_SCAN_WIDTHS[width]
-    kw = {**w, "hole_frac": 0.15, "pad_tail": w["c"] // 6, "integer": False,
-          "dtype": "float32", **_L2_SCAN_CASES[case](w)}
+    kw = {**w, "hole_frac": 0.15, "pad_tail": None, **_L2_DEFAULTS, **_L2_SCAN_CASES[case](w)}
     b, nq, c, d = (kw[n] for n in ("b", "q", "c", "d"))
     rng = np.random.default_rng(seed)
-    if kw["integer"]:
-        cands = rng.integers(-3, 4, (b, c, d)).astype(np.float32)
-        cands[:, c // 2:2 * (c // 2)] = cands[:, :c // 2]
-        q = rng.integers(-3, 4, (b, nq, d)).astype(np.float32)
-    else:
-        cands = (rng.normal(size=(b, c, d)) * 3).astype(np.float32)
-        q = (rng.normal(size=(b, nq, d)) * 3).astype(np.float32)
-    ids = rng.permutation(b * c).reshape(b, c).astype(np.int32)
-    ids[rng.random((b, c)) < kw["hole_frac"]] = -1
-    if kw["pad_tail"]:
-        ids[:, -kw["pad_tail"]:] = -1
+    q, cands = _l2_rows(rng, kw, (b, nq), b, c, d, "halves")
+    ids = _l2_ids(rng, kw, b, c)
     ids[-1] = -1
+    _l2_overflow(rng, kw, cands, ids, 0)
     return (q, cands, ids), kw["k"], kw["dtype"], kw["integer"]

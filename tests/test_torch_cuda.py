@@ -173,6 +173,99 @@ def test_l2_topk_batched_kernel_matches_plain(cuda_device, case):
 
 
 @pytest.mark.cuda
+def test_l2_scans_report_their_launch_and_refuse_what_does_not_fit(cuda_device):
+    """The launch-shape queries give a group of 16 or 32 rows that fits a
+    block. At k = 2,000 not even 16 rows' lists fit a block: every L2 scan
+    raises without counting a launch."""
+    q, cands, ids, k, _ = _scan_inputs("holes+padding", cuda_device, 17)
+    for shape in (l2_mod.occupancy(cands, k), l2_mod.scan_occupancy(cands, k)):
+        rows = shape.get("slots_per_block", shape.get("rows_per_block"))
+        assert rows in (16, 32) and shape["blocks_per_sm"] >= 1
+        assert 0 < shape["smem_bytes"] <= 232448
+    arrays, _, _, _ = rt.l2_case("holes+padding", seed=18)
+    q_pad, qbuf, qc, qids = (torch.from_numpy(a).to(cuda_device) for a in arrays)
+    before = (l2_mod.launches, l2_mod.flat_launches, l2_mod.batched_launches)
+    with pytest.raises(RuntimeError, match="shared memory"):
+        l2_mod.l2_topk_qbuf(q_pad, qbuf, qc, qids, 2000)
+    with pytest.raises(RuntimeError, match="shared memory"):
+        l2_mod.l2_topk(q[0], cands[0], ids[0], 2000)
+    with pytest.raises(RuntimeError, match="shared memory"):
+        l2_mod.l2_topk_batched(q, cands, ids, 2000)
+    assert (l2_mod.launches, l2_mod.flat_launches, l2_mod.batched_launches) == before
+
+
+@pytest.mark.cuda
+def test_l2_topk_qbuf_plan_covers_every_occupied_slot_once(cuda_device):
+    """The dispatch-buffer scan's plan: each bucket's occupied slots in groups
+    of G, in slot order; a group is one item over [0, its bucket's valid
+    end), or, when cut, items whose candidate ranges tile that span in whole
+    256-candidate units, with a run of partial lists of its own in the pool.
+    The hot bucket's groups are cut."""
+    arrays, k, _, _ = rt.l2_case("hot bucket", seed=19)
+    q_pad, qbuf, cands, ids = (torch.from_numpy(a).to(cuda_device) for a in arrays)
+    g = l2_mod.occupancy(cands, k)["slots_per_block"]
+    plan = l2_mod.plan(q_pad, qbuf, cands, ids, k)
+    items = plan["items"].tolist()
+    assert plan["split_items"] > 0 and 0 < plan["partial_lists"] <= plan["pool_lists"]
+    occ = rt.occupied(q_pad, qbuf).sum(1).tolist()
+    valid = (ids >= 0).cpu()
+    lists = set()
+    for b in range(qbuf.shape[0]):
+        end = int(torch.nonzero(valid[b]).max()) + 1 if bool(valid[b].any()) else 0
+        mine = sorted((it for it in items if it[0] == b), key=lambda it: (it[1], it[7]))
+        groups = sorted({it[1] for it in mine})
+        assert groups == list(range(0, occ[b], g))
+        for s_lo in groups:
+            parts = [it for it in mine if it[1] == s_lo]
+            nq, ranges, list0 = parts[0][2], parts[0][5], parts[0][6]
+            assert nq == min(g, occ[b] - s_lo) and len(parts) == ranges
+            assert [it[7] for it in parts] == list(range(ranges))
+            assert parts[0][3] == 0 and parts[-1][4] == end
+            assert all(a[4] == z[3] and a[4] % 256 == 0 for a, z in zip(parts, parts[1:]))
+            assert (list0 == -1) == (ranges == 1)
+            if ranges > 1:
+                run = set(range(list0, list0 + nq * ranges))
+                assert not run & lists and max(run) < plan["pool_lists"]
+                lists |= run
+
+
+@pytest.mark.cuda
+def test_l2_scans_sort_a_nan_as_the_plain_version(cuda_device):
+    """A query with a component of 1e20 against a candidate with 1e20 in the
+    same column: q.c and both norms overflow to +inf, so that distance is
+    inf - inf, a NaN with a clear sign bit (the only NaN arithmetic on the
+    card makes), and every other distance of the row is +inf. The NaN sorts
+    after +inf, as the plain version's torch.sort puts it on the card, in
+    the flat, batched and qbuf scans, and its id is -1: that row equal bit
+    for bit, NaN included; the other rows under the usual rule. Every id is
+    valid and k is the set's length, so the NaN is the row's last entry."""
+    g = torch.Generator().manual_seed(37)
+    n, d, k = 40, 16, 40
+    cands = torch.randn((2, n, d), generator=g)
+    q = torch.randn((2, 3, d), generator=g)
+    q[:, 0, 5], cands[:, 7, 5] = 1e20, 1e20
+    ids = torch.arange(2 * n, dtype=torch.int32).reshape(2, n)
+    q, cands, ids = q.to(cuda_device), cands.to(cuda_device), ids.to(cuda_device)
+    q_pad = torch.cat([q.reshape(6, d), torch.zeros_like(q[0, :1])])
+    qbuf = torch.arange(6, dtype=torch.int32, device=cuda_device).reshape(2, 3)
+    runs = [(l2_mod.l2_topk(q[0], cands[0], ids[0], k),
+             tref.l2_topk_ref(q[0], cands[0], ids[0], k)),
+            (l2_mod.l2_topk_batched(q, cands, ids, k),
+             tref.l2_topk_batched_ref(q, cands, ids, k)),
+            (l2_mod.l2_topk_qbuf(q_pad, qbuf, cands, ids, k),
+             tref.l2_topk_qbuf_ref(q_pad, qbuf, cands, ids, k))]
+    for (kd, ki), (pd, pi) in runs:
+        kd, ki, pd, pi = (t.reshape(-1, 3, k) for t in (kd, ki, pd, pi))
+        assert torch.equal(kd[:, 0].view(torch.int32), pd[:, 0].view(torch.int32))
+        assert torch.equal(ki[:, 0], pi[:, 0])
+        assert bool(torch.isnan(kd[:, 0, -1]).all()) and bool(torch.isinf(kd[:, 0, :-1]).all())
+        assert bool((ki[:, 0] == -1).all())
+        rt.assert_topk_match(kd[:, 1:], ki[:, 1:], pd[:, 1:], pi[:, 1:],
+                             rt.l2_atol(q[:, 1:].reshape(-1, d), cands.reshape(-1, d),
+                                        ids.reshape(-1)))
+
+
+@pytest.mark.cuda
 def test_scan_and_assign_wrappers_reject_what_they_do_not_take(cuda_device):
     q, cands, ids, k, _ = _scan_inputs("holes+padding", cuda_device, 15)
     with pytest.raises(TypeError):
