@@ -52,7 +52,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                must reach the plain inertia within 1e-3, and one assignment
                pass at its centroids is held kernel vs plain (near-ties
                counted) and timed over the base and over 10M points made on
-               the card;
+               the card, beside its bound on the TF32 tensor cores (three
+               products), its CUDA-core bound and torch.mm of the same
+               product alone; its launch shape and registers are logged;
   8. flat    — l2_topk of the first 1,000 queries over the whole base at
                k = 100, held against its plain version and against exact
                ground truth (up to ties at the 100th place), timed; its
@@ -98,7 +100,8 @@ N_BASE, N_PQ_BASE, N_QUERIES, BATCH = 1_000_000, 100_000, 10_000, 1_000
 MAIN_BUILD = dict(n_partitions=1024, k=100, nprobe_max=64, eta=0.03, sigma=0.5,
                   train_frac=0.1, pq_m=16, pq_ks=256, rerank=4)
 HBM_BYTES_PER_S = 3.35e12               # H100 SXM data sheet
-PEAK_OPS = {"float32": 67e12,           # CUDA-core f32 (no tensor cores)
+PEAK_OPS = {"float32": 67e12,           # f32 on the CUDA cores
+            "tf32": 495e12,             # dense TF32 tensor-core rate
             "bfloat16": 989e12}         # dense bf16 tensor-core rate
 
 
@@ -345,11 +348,36 @@ def scan_bound(q, cands, cand_ids, k):
 
 
 def assign_bound(x, c):
-    """Least time for one assignment pass: x and the centroids read once, the
-    assignment and its distance written once; 2·d flops per (point,
-    centroid)."""
+    """Least time for one assignment pass in the unit the kernel uses: x and
+    the centroids read once, the assignment and its distance written once;
+    for f32 three TF32 products (the hi/lo split), 3 · 2·d flops per (point,
+    centroid) at the TF32 rate, for bf16 one product, 2·d flops at the bf16
+    rate. Also returns the CUDA-core bound (2·d flops at the f32 rate)."""
     nbytes = (x.numel() + c.numel()) * x.element_size() + x.shape[0] * 8
-    return nbytes, 2.0 * x.shape[0] * c.shape[0] * x.shape[1], PEAK_OPS["float32"]
+    flops = 2.0 * x.shape[0] * c.shape[0] * x.shape[1]
+    if x.element_size() == 2:  # bf16
+        tensor = (nbytes, flops, PEAK_OPS["bfloat16"])
+    else:
+        tensor = (nbytes, 3 * flops, PEAK_OPS["tf32"])
+    return tensor, (nbytes, flops, PEAK_OPS["float32"])
+
+
+def ptxas_report(name: str, entry: str) -> dict:
+    """Registers and spill bytes nvcc's -Xptxas -v reported for the kernel of
+    library ``name`` whose mangled name contains ``entry``."""
+    from repro_torch.kernels import _build
+
+    out, inside = {}, False
+    for line in _build.build_log(name).splitlines():
+        if "Compiling entry function" in line:
+            inside = entry in line
+        elif inside and "spill stores" in line:
+            parts = line.split(",")
+            out["spill_store_bytes"] = int(parts[1].split()[0])
+            out["spill_load_bytes"] = int(parts[2].split()[0])
+        elif inside and "Used" in line and "registers" in line:
+            out["registers"] = int(line.split("Used")[1].split()[0])
+    return out
 
 
 def bound_entry(nbytes, ops, peak):
@@ -441,6 +469,9 @@ def kmeans_phase(dev, base, n_big: int):
     if rel > 1e-3:
         raise AssertionError(f"kmeans: inertias differ by {rel:.3g} relative")
     cents = fit.centroids
+    shape = km_mod.launch_shape(x, cents)
+    shape.update(ptxas_report("kmeans_assign", "kmeans_assign_kernelIf"))
+    log(f"kmeans kmeans_assign launch (f32): {shape}")
     timed = {}
     for what, pts in (("base", x), ("made on the card", None)):
         if pts is None:  # base points drawn again, plus noise: the base's distribution
@@ -450,21 +481,34 @@ def kmeans_phase(dev, base, n_big: int):
         err, ties = compare_assign(f"kmeans_assign over {what}", pts, cents)
         ms = time_ms(lambda: km_mod.kmeans_assign(pts, cents), 5)
         plain_ms = time_ms(lambda: kops.kmeans_assign(pts, cents, impl="ref"), 2, 1)
-        bound = bound_entry(*assign_bound(pts, cents))
+        mm_ms = None
+        if what == "base":
+            # the product alone, in full f32 (TF32 off, as set in main): a yardstick
+            # for the part of the work a library does, not the argmin. Its [N, B]
+            # output is 4 GB here (41 GB at 10M points, so not timed there)
+            mm_ms = time_ms(lambda: torch.mm(pts, cents.T), 5)
+            torch.cuda.empty_cache()
+        tensor, cuda_core = assign_bound(pts, cents)
+        bound, core_bound = bound_entry(*tensor), bound_entry(*cuda_core)
         timed[what] = dict(n=pts.shape[0], err=err, near_ties=ties, ms=ms, plain_ms=plain_ms,
-                           bound=bound)
+                           bound=bound, core_bound=core_bound, mm_ms=mm_ms)
         log(f"kmeans one pass over {pts.shape[0]} points ({what}) at the kernel fit's "
             f"centroids: kernel vs plain ok (max abs err {err:.3g}; {ties} near-ties "
             f"assigned differently); {ms:.3f} ms (plain {plain_ms:.3f} ms, bound "
-            f"{bound[0]:.3f} ms by {bound[1]})")
+            f"{bound[0]:.3f} ms by {bound[1]} on the TF32 tensor cores, CUDA-core bound "
+            f"{core_bound[0]:.3f} ms" + ("" if mm_ms is None else
+                                            f"; torch.mm product only {mm_ms:.3f} ms") + ")")
         del pts
     base_t, big = timed["base"], timed["made on the card"]
     return kernel_entry(
         "kmeans_assign", "kmeans_assign.cu", "src/repro/kernels/kmeans_assign.py:51", launches,
         base_t["err"], base_t["ms"], base_t["plain_ms"], base_t["bound"],
         {"x": list(x.shape), "centroids": list(cents.shape), "near_ties": base_t["near_ties"],
+         "bound_unit": "3 TF32 products at 495 TFLOP/s", "launch": shape,
+         "cuda_core_bound_ms": base_t["core_bound"][0], "product_only_mm_ms": base_t["mm_ms"],
          "at_n": {"n": big["n"], "ms": big["ms"], "plain_ms": big["plain_ms"],
-                  "bound_ms": big["bound"][0], "near_ties": big["near_ties"]}})
+                  "bound_ms": big["bound"][0], "cuda_core_bound_ms": big["core_bound"][0],
+                  "near_ties": big["near_ties"]}})
 
 
 def flat_phase(dev, queries, base, gtd, gti, k: int):

@@ -1,5 +1,7 @@
 """Wrapper of the CUDA k-means assignment ``csrc/kmeans_assign.cu``
-(counterpart of ``repro/kernels/kmeans_assign.py:kmeans_assign``).
+(counterpart of ``repro/kernels/kmeans_assign.py:kmeans_assign``): the
+point-centroid products on the tensor cores (three TF32 products for f32
+inputs, one bf16 product for bf16), the argmin in registers.
 
 For a CPU tensor the wrapper runs the plain version
 (``ref.kmeans_assign_ref``); for a CUDA tensor it launches the kernel or
@@ -29,6 +31,10 @@ def _lib():
             f = getattr(lib, fn)
             f.argtypes = [ptr, i32, ptr, i32, i32, ptr, ptr, ptr, ptr]
             f.restype = i32
+        lib.kmeans_assign_scratch_len.argtypes = [i32, i32, i32]
+        lib.kmeans_assign_scratch_len.restype = ctypes.c_longlong
+        lib.kmeans_assign_shape.argtypes = [ptr, i32, ptr, i32, i32, ctypes.POINTER(i32)]
+        lib.kmeans_assign_shape.restype = None
         lib._typed = True
     return lib
 
@@ -61,14 +67,33 @@ def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor):
         raise ValueError("kmeans_assign: no centroids")
     x, centroids = x.contiguous(), centroids.contiguous()
     (n, d), b = x.shape, centroids.shape[0]
-    csq = torch.empty(b, dtype=torch.float32, device=x.device)
+    # ||c||² padded to whole centroid tiles, then (f32) the centroids' hi and lo planes
+    scratch = torch.empty(_lib().kmeans_assign_scratch_len(b, d, int(x.dtype == torch.bfloat16)),
+                          dtype=torch.float32, device=x.device)
     oa = torch.empty(n, dtype=torch.int32, device=x.device)
     od = torch.empty(n, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(_lib(), _DTYPES[x.dtype])(x.data_ptr(), n, centroids.data_ptr(), b, d,
-                                                 csq.data_ptr(), oa.data_ptr(), od.data_ptr(),
+                                                 scratch.data_ptr(), oa.data_ptr(), od.data_ptr(),
                                                  stream)
     _build.check(err, f"kmeans_assign (N={n}, B={b}, d={d})")
     launches += 1
     return oa, od
+
+
+_SHAPE_KEYS = ("point_tile", "centroid_tile", "stages", "chunk", "resident_chunks", "blocks",
+               "smem_bytes", "threads", "tma")
+
+
+def launch_shape(x: torch.Tensor, centroids: torch.Tensor) -> dict:
+    """The launch ``kmeans_assign`` makes for these CUDA tensors: points and
+    centroids a tile, ring stages, elements of d a chunk, resident point
+    chunks, blocks, shared memory and threads a block, and whether the loads
+    go through TMA (1) or through registers (0)."""
+    x, centroids = x.contiguous(), centroids.contiguous()
+    out = (ctypes.c_int * len(_SHAPE_KEYS))()
+    with torch.cuda.device(x.device):
+        _lib().kmeans_assign_shape(x.data_ptr(), x.shape[0], centroids.data_ptr(), x.shape[1],
+                                   int(x.dtype == torch.bfloat16), out)
+    return dict(zip(_SHAPE_KEYS, out))

@@ -410,6 +410,22 @@ _KMEANS_CASES = {
     # before it, so the lower index must win
     "duplicate centroids": lambda w: dict(integer=True),
     "bf16": lambda w: dict(dtype="bfloat16"),
+    # SIFT-like: non-negative entries around a shared offset, so ||x||^2 is
+    # large next to the gaps between centroids; a single TF32 product (an
+    # 11-bit significand) misses the tolerance here, the three-product split
+    # that the card's kernel uses does not
+    "large common offset": lambda w: dict(offset=100.0),
+    # fewer points than one warpgroup's 64 rows of the kernel's point tile,
+    # fewer centroids than one of its centroid tiles (128)
+    "points under one tile": lambda w: dict(n=50, b=7),
+    # d past the 128 (f32) the kernel keeps resident: its point chunks are
+    # loaded again for every centroid tile, the last panel partial
+    "d over one panel": lambda w: dict(d=200),
+    # rows of 600 bytes, not a multiple of 16: loaded through registers, and
+    # 5 chunks of 64, past one panel of 4, so consecutive tiles cycle the slots
+    "bf16 over one panel": lambda w: dict(dtype="bfloat16", d=300),
+    # bf16 rows not a multiple of 16 bytes within one panel
+    "bf16 d not a multiple of 8": lambda w: dict(dtype="bfloat16", d=w["d"] - 3),
 }
 KMEANS_CASES = tuple(_KMEANS_CASES)
 
@@ -418,13 +434,16 @@ def kmeans_case(case: str, *, width: str = "small", seed: int = 0):
     """One ``kmeans_assign`` edge case: (x [N, d] f32, centroids [B, d] f32)
     as numpy, the dtype's name, and whether the outputs must be equal."""
     w = KMEANS_WIDTHS[width]
-    kw = {**w, "integer": False, "dtype": "float32", **_KMEANS_CASES[case](w)}
+    kw = {**w, "integer": False, "dtype": "float32", "offset": 0.0, **_KMEANS_CASES[case](w)}
     n, b, d = kw["n"], kw["b"], kw["d"]
     rng = np.random.default_rng(seed)
     if kw["integer"]:
         x = rng.integers(-3, 4, (n, d)).astype(np.float32)
         cents = rng.integers(-3, 4, (b, d)).astype(np.float32)
         cents[1::2] = cents[::2][:b // 2]
+    elif kw["offset"]:
+        x = np.abs(rng.normal(size=(n, d)) * 20 + kw["offset"]).astype(np.float32)
+        cents = np.abs(rng.normal(size=(b, d)) * 20 + kw["offset"]).astype(np.float32)
     else:
         x = (rng.normal(size=(n, d)) * 3).astype(np.float32)
         cents = (rng.normal(size=(b, d)) * 3).astype(np.float32)

@@ -7,6 +7,7 @@ comparison (with its tolerances) are ``repro_torch.testing``'s, which
 """
 import os
 import shutil
+import subprocess
 
 import pytest
 import torch
@@ -137,6 +138,28 @@ def test_kmeans_assign_kernel_matches_plain(cuda_device, case):
     assert ka.dtype == torch.int32 and kd.dtype == torch.float32 and ka.shape == (x.shape[0],)
     pa, pd = tref.kmeans_assign_ref(x, c)
     rt.assert_assign_match(ka, kd, pa, pd, x, c, exact=exact)
+
+
+@pytest.mark.cuda
+def test_kmeans_assign_runs_on_the_tensor_cores(cuda_device):
+    """The built library's SASS: both instantiations of the assignment kernel
+    (f32 and bf16) contain HGMMA, Hopper's warpgroup product."""
+    from repro_torch.kernels import _build
+
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(cuobjdump):
+        pytest.skip("needs cuobjdump to read the SASS")
+    _build.load("kmeans_assign")
+    sass = subprocess.run([cuobjdump, "-sass", str(_build._lib_path("kmeans_assign"))],
+                          capture_output=True, text=True, check=True).stdout
+    kernels = {}
+    for section in sass.split("Function : ")[1:]:
+        name = section.split(None, 1)[0]
+        if "kmeans_assign_kernel" in name:
+            kernels["bfloat16" if "bfloat16" in name else "float32"] = section
+    assert set(kernels) == {"float32", "bfloat16"}, list(kernels)
+    for dtype, body in kernels.items():
+        assert "HGMMA" in body, f"no HGMMA in the {dtype} kernel"
 
 
 def _scan_inputs(case, dev, seed):

@@ -72,6 +72,42 @@ def test_kmeans_assign_plain_matches_jax(case, jax_impl):
     rt.assert_assign_match(ta, td, ja, jd, xt, ct, exact=exact)
 
 
+def _tf32(a, *, rna: bool):
+    """The TF32 value of float32 ``a``: rounded to nearest with ties away
+    (``cvt.rna.tf32.f32``) or truncated, as the tensor cores read a plain f32
+    operand."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    if rna:
+        bits = bits + np.uint32(0x1000)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+@pytest.mark.parametrize("width", ["small", "main"])
+@pytest.mark.parametrize("case", ["large common offset", "ragged N and B"])
+def test_one_tf32_product_fails_the_rule_and_the_split_passes(case, width):
+    """Why the card's kernel takes three TF32 products: with TF32 operands and
+    exact (float64) sums, one product x_hi.c_hi misses the parity rule
+    (``assert_assign_match``) on these cases, and the split x_hi.c_lo +
+    x_lo.c_hi + x_hi.c_hi (hi rounded to nearest, lo = v - hi truncated on
+    read) meets it."""
+    (x, c), _, _ = rt.kmeans_case(case, width=width, seed=1)
+    xt, ct = torch.from_numpy(x), torch.from_numpy(c)
+    pa, pd = tref.kmeans_assign_ref(xt, ct)
+    x64, c64 = x.astype(np.float64), c.astype(np.float64)
+    norms = (x64 * x64).sum(1)[:, None], (c64 * c64).sum(1)[None, :]
+
+    def assignment(prod):
+        d2 = torch.from_numpy((norms[0] - 2.0 * prod + norms[1]).astype(np.float32))
+        return torch.argmin(d2, 1).int(), d2.min(1).values
+
+    xh, ch = _tf32(x, rna=True), _tf32(c, rna=True)
+    xl, cl = _tf32(x - xh, rna=False), _tf32(c - ch, rna=False)
+    xh, ch, xl, cl = (a.astype(np.float64) for a in (xh, ch, xl, cl))
+    with pytest.raises(AssertionError):
+        rt.assert_assign_match(*assignment(xh @ ch.T), pa, pd, xt, ct)
+    rt.assert_assign_match(*assignment(xh @ cl.T + xl @ ch.T + xh @ ch.T), pa, pd, xt, ct)
+
+
 def _scan_case(case, seed):
     (q, cands, ids), k, dtype, exact = rt.l2_scan_case(case, seed=seed)
     tdt = getattr(torch, dtype)
