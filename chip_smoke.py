@@ -19,8 +19,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                candidate, rows many times k long, -inf, +inf and NaN
                offsets; ragged N and B, B = 1, d not a multiple of 4,
                duplicate centroids; the ADC cases also through the full, flat
-               and batched ADC, expanded through the dispatch buffer) at the
-               main paths' widths, under the same rule the tests use;
+               and batched ADC, expanded through the dispatch buffer, with
+               query counts that are no multiple of the flat kernels' rows a
+               block, 16 codewords, codes off a 16-byte boundary, lists too
+               large for the widest row group, and LUT rows of 64 and 128 KB)
+               at the main paths' widths, under the same rule the tests use;
   4. main    — one engine at the lira-ann-q widths (dim 128, B = 1024
                partitions, k = 100, nprobe_max = 64, tier residual_pq with
                m = 16, ks = 256, rerank 4) over 1,000,000 base points and
@@ -67,11 +70,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                trained on 32,768 rows, every point encoded): pq_adc of the
                first 1,000 queries' LUTs over the 1M codes, the full [1,000,
                1M] ADC matrix, equal bit for bit to its plain version; timed;
+               its launch plan, its gather floor (Q·N·m shared-memory reads
+               at 32 words a clock an SM) and the mean wavefronts a gather
+               under the old and the new lane map, on 65,536 of its codes;
  11. adc-flat — pq_adc_topk of the same LUTs over the same codes at k = 100,
                the exhaustive PQ search: equal to its plain version
                (distances bit for bit, ids too) and to a stable top-100 of
                phase 10's matrix; recall@100 against exact ground truth is
-               reported, with no floor; timed;
+               reported, with no floor; timed; plan, floor and wavefronts
+               as phase 10;
  12. adc-batched — pq_adc_topk_batched of the residual_pq path's first
                dispatch buffer expanded to [1024, 128, 16, 256] LUTs against
                its codes, slots and offsets at rk = 400: equal to its plain
@@ -100,6 +107,8 @@ N_BASE, N_PQ_BASE, N_QUERIES, BATCH = 1_000_000, 100_000, 10_000, 1_000
 MAIN_BUILD = dict(n_partitions=1024, k=100, nprobe_max=64, eta=0.03, sigma=0.5,
                   train_frac=0.1, pq_m=16, pq_ks=256, rerank=4)
 HBM_BYTES_PER_S = 3.35e12               # H100 SXM data sheet
+SM_CLOCK_HZ = 1.98e9                    # the clock behind the 67 TFLOP/s f32 peak
+SMEM_WORDS_PER_CLOCK = 32               # shared memory: 32 banks of 4 bytes an SM
 PEAK_OPS = {"float32": 67e12,           # f32 on the CUDA cores
             "tf32": 495e12,             # dense TF32 tensor-core rate
             "bfloat16": 989e12}         # dense bf16 tensor-core rate
@@ -237,6 +246,8 @@ def edge_cases(dev) -> None:
         (lut_pad, qbuf, codes, ids, coff, qoff), k, _ = rt.adc_case(case, width="main")
         lut_pad, qbuf, codes, ids = (torch.from_numpy(a).to(dev)
                                      for a in (lut_pad, qbuf, codes, ids))
+        if case in rt.ADC_UNALIGNED:
+            codes = rt.unaligned(codes)
         coff, qoff = (None if a is None else torch.from_numpy(a).to(dev) for a in (coff, qoff))
         compare_adc(case, lut_pad, qbuf, codes, ids, k, coff, qoff)
         log(f"edges  pq_adc_topk_qbuf  {case}: ok, equal ({codes.dtype}, "
@@ -617,6 +628,65 @@ def adc_topk_bound(lut, codes, cand_ids, k, cand_off, q_off):
     return nbytes, float(valid.sum()) * rows * adds, PEAK_OPS["float32"]
 
 
+def gather_floor_ms(q: int, n: int, m: int) -> float:
+    """The least time of the flat ADC kernels' LUT gathers: Q·N·m 4-byte
+    reads from shared memory at 32 words a clock on each SM."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return q * n * m / (sms * SMEM_WORDS_PER_CLOCK * SM_CLOCK_HZ) * 1e3
+
+
+def gather_wavefronts(codes, ks: int, rows: int, v: int, t: int) -> float:
+    """A model, not a reading from the card (it has no bank-conflict
+    counter here): the mean shared-memory wavefronts a 32 words gathered, for
+    ``codes`` [n, m] (a sample of the phase's own) under adc_tile.cuh's lane
+    map: ``rows``
+    query rows a block in slabs of ``v`` interleaved (a lane reads v words
+    at once), ``t`` consecutive candidates a lane. rows = v = t = 1 is the
+    map of the kernels before: one candidate a lane. A request of v words a
+    lane goes in v phases of 32 / v lanes; a phase takes as many wavefronts
+    as the most distinct words any bank holds."""
+    import numpy as np
+
+    c = np.asarray(codes, dtype=np.int64)
+    n_m = c.shape[1]
+    slabs = rows // v
+    span = (32 // slabs) * t
+    c = c[:len(c) // span * span].reshape(-1, 32 // slabs, t, n_m)   # [tile, group, t, m]
+    steps = c.transpose(0, 2, 1, 3).reshape(-1, 32 // slabs, n_m)     # [step, group, m]
+    stride = v * n_m * ks + ((32 // slabs - v * n_m * ks) & 31)
+    lane = np.arange(32)
+    slab, group = lane % slabs, lane // slabs
+    word = (slab * stride)[None, :, None, None] + (
+        (steps[:, group, :] + np.arange(n_m) * ks) * v)[..., None] + np.arange(v)  # [step, lane, m, v]
+    per_phase = 32 // v
+    word = word.transpose(0, 2, 1, 3).reshape(-1, v, per_phase * v)   # [request, phase, words]
+    word = np.sort(word, axis=-1)
+    new = np.ones(word.shape, bool)
+    new[..., 1:] = word[..., 1:] != word[..., :-1]
+    slot = (np.arange(word.shape[0] * v).reshape(-1, v)[..., None] * 32 + word % 32)
+    counts = np.bincount(slot[new], minlength=word.shape[0] * v * 32).reshape(-1, v, 32)
+    return float(counts.max(-1).sum(-1).mean() / v)
+
+
+def adc_gather_log(what, codes, lut, plan: dict, v: int, t: int, bound) -> None:
+    """Log a flat ADC kernel's launch plan, its gather floor (worked out at
+    an assumed clock) beside its bound, and the modelled wavefronts a gather
+    under the old and the new lane map on a sample of the phase's codes."""
+    q, m, ks = lut.shape
+    sample = codes[:65536].cpu().numpy()
+    old = gather_wavefronts(sample, ks, 1, 1, 1)
+    new = gather_wavefronts(sample, ks, plan["rows_per_block"], v, t)
+    floor = gather_floor_ms(q, codes.shape[0], m)
+    log(f"adc    {what} launch plan {plan}; gather floor {floor:.3f} ms ({q} x {codes.shape[0]} "
+        f"x {m} reads at {SMEM_WORDS_PER_CLOCK} words a clock an SM, {SM_CLOCK_HZ / 1e9} GHz) "
+        f"beside the bound {bound[0]:.3f} ms by {bound[1]}; modelled (gather_wavefronts, not "
+        f"measured) wavefronts a 32-word gather on {len(sample)} of these codes: one candidate "
+        f"a lane {old:.3f}, this map (R {plan['rows_per_block']}, gathers of {v} rows, {t} "
+        f"candidates a lane) {new:.3f}")
+
+
 def adc_full_phase(dev, queries, base):
     """Train a plain PQ of the base, encode it, and take ``ops.pq_adc`` of
     the queries' LUTs over every code: launches counted, equal bit for bit to
@@ -654,6 +724,9 @@ def adc_full_phase(dev, queries, base):
     plain_ms = time_ms(lambda: kops.pq_adc(lut, codes, impl="ref"), 1, 1)
     nbytes = lut.numel() * 4 + codes.numel() * codes.element_size() + d_k.numel() * 4
     bound = bound_entry(nbytes, float(d_k.numel()) * (codes.shape[1] - 1), PEAK_OPS["float32"])
+    plan = adc_mod.full_plan(lut.shape[0], codes.shape[0], lut.shape[1], lut.shape[2],
+                             codes.element_size(), dev)
+    adc_gather_log("pq_adc", codes, lut, plan, min(plan["rows_per_block"], 4), 8, bound)
     entry = kernel_entry("pq_adc", "pq_adc.cu", "src/repro/kernels/pq_adc.py:62", launches, err,
                          ms, plain_ms, bound,
                          {"lut": list(lut.shape), "codes": [*codes.shape, str(codes.dtype)],
@@ -690,18 +763,19 @@ def adc_flat_phase(dev, lut, codes, full, gti, k: int):
         raise AssertionError("pq_adc_topk: distances differ from a stable top-k of pq_adc")
     nq = lut.shape[0]
     recall = recall_at_k(i_k.cpu().numpy(), gti[:nq], k)
-    splits = adc_mod.topk_splits(1, nq, codes.shape[0], codes.shape[1], lut.shape[2], k,
-                                 codes.element_size(), dev)
+    plan = adc_mod.flat_plan(nq, codes.shape[0], codes.shape[1], lut.shape[2], k,
+                             codes.element_size(), dev)
+    splits = plan["splits"]
     log(f"adc    pq_adc_topk of {nq} queries over {codes.shape[0]} codes, k {k} ({splits} "
         f"candidate ranges): equal to its plain version (distances and ids) and, in "
         f"distances, to a stable top-{k} of pq_adc; recall@{k} against exact ground truth "
         f"{recall:.4f} (exhaustive PQ, no floor)")
     ms = time_ms(lambda: adc_mod.pq_adc_topk(lut, codes, ids, k), 5)
     plain_ms = time_ms(lambda: kops.pq_adc_topk(lut, codes, ids, k, impl="ref"), 1, 1)
+    bound = bound_entry(*adc_topk_bound(lut[None], codes[None], ids[None], k, None, None))
+    adc_gather_log("pq_adc_topk", codes, lut, plan, min(plan["rows_per_block"], 4), 4, bound)
     return kernel_entry("pq_adc_topk", "pq_adc_topk.cu", "src/repro/kernels/pq_adc.py:131",
-                        launches, err, ms, plain_ms,
-                        bound_entry(*adc_topk_bound(lut[None], codes[None], ids[None], k,
-                                                    None, None)),
+                        launches, err, ms, plain_ms, bound,
                         {"lut": list(lut.shape), "codes": [*codes.shape, str(codes.dtype)],
                          "k": k, "splits": splits, "recall_at_k": recall})
 

@@ -35,8 +35,8 @@
 //    calculator gives it for the kernel that is launched (shared memory
 //    bounds it: a row needs its LUT, its list and its buffer), the larger G
 //    on a tie (fewer blocks, each range end found once for more rows), at
-//    most 8. That one plan gives the launch, the flat scan's split and the
-//    launch shape the wrappers report.
+//    most 8. That one plan gives the launch and the launch shape the
+//    wrappers report.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -51,6 +51,7 @@ using topksel::kAllLanes;
 using topksel::Selector;
 
 using scancommon::align16;
+using scancommon::code_vectors;
 using scancommon::kMaxSmem;
 using scancommon::Plan;
 
@@ -85,17 +86,6 @@ inline Plan plan(Kernel* kernel, int m, int ks, int k) {
     if (per_sm > 0 && G * per_sm >= best.G * best.per_sm) best = {G, smem, per_sm};
   }
   return best;
-}
-
-// 16-byte code vectors a row, the scan's NV: 1 when a row's codes are one
-// vector (and their base is 16-byte aligned, as a tensor's own storage is),
-// else 0.
-inline int code_vectors(int m, int code_size, bool aligned = true) {
-  return aligned && m * code_size == 16 ? 1 : 0;
-}
-
-inline int code_vectors(const void* codes, int m, int code_size) {
-  return code_vectors(m, code_size, (reinterpret_cast<uintptr_t>(codes) & 15) == 0);
 }
 
 // The sum over m of one candidate's LUT terms, from its NV code vectors.
@@ -133,9 +123,7 @@ __device__ __forceinline__ float sum_row(const float* __restrict__ L, int m, int
 // Scan candidates [c_lo, c_hi) of one set (codes cb [*, m], ids ib, offsets
 // cob or null) for the group's ns slots and write slot i's list to
 // od / oi [i * k, (i + 1) * k): the id ib[position] (-1 beside a distance
-// that is not finite, as the plain version), or the position itself, whatever
-// the distance, when write_ids is false (the merge applies that rule); inf /
-// -1 past a list's length. qob [ns] (or null) is the group's per-slot offset.
+// that is not finite, as the plain version); inf / -1 past a list's length. qob [ns] (or null) is the group's per-slot offset.
 // Every thread of the block (32 * G, G >= ns) calls this. NV = 1 needs
 // 16-byte aligned code rows of 16 bytes.
 template <typename CT, int NV>
@@ -144,7 +132,7 @@ __device__ void scan_group(unsigned char* smem, const float* __restrict__ lut, i
                            const float* __restrict__ qob, const CT* __restrict__ cb,
                            const int* __restrict__ ib, const float* __restrict__ cob,
                            int c_lo, int c_hi, int k, float* __restrict__ od,
-                           int* __restrict__ oi, bool write_ids) {
+                           int* __restrict__ oi) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   auto row_of = [&](int i) { return rows ? rows[i] : (int)(row0 + i); };
 
@@ -222,7 +210,7 @@ __device__ void scan_group(unsigned char* smem, const float* __restrict__ lut, i
       sel.offer(id[u] >= 0, topksel::pack(d[u], c0 + u * 32 + lane), lane);
   }
   sel.flush(lane);
-  sel.store(od + (size_t)slot * k, oi + (size_t)slot * k, write_ids ? ib : nullptr, lane);
+  sel.store(od + (size_t)slot * k, oi + (size_t)slot * k, ib, lane);
 }
 
 }  // namespace adcscan

@@ -61,7 +61,7 @@ pq_adc_topk_qbuf_kernel(const float* __restrict__ lut_pad, int n_rows, int m, in
   scan_group<CT, NV>(smem, lut_pad, m, ks, qbuf + slot0, 0, min(G, S - s0), n_rows - 1,
                       q_off ? q_off + slot0 : nullptr, codes + (size_t)b * N * m,
                       ids + (size_t)b * N, cand_off ? cand_off + (size_t)b * N : nullptr, 0, N,
-                      k, od + slot0 * k, oi + slot0 * k, true);
+                      k, od + slot0 * k, oi + slot0 * k);
 }
 
 // The launch plan of the kernel that codes of this width take.

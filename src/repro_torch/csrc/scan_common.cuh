@@ -22,6 +22,17 @@ struct Plan {
   int per_sm = 0;
 };
 
+// 16-byte code vectors a row, the ADC scans' NV: 1 when a row's codes are one
+// vector (and their base is 16-byte aligned, as a tensor's own storage is),
+// else 0.
+inline int code_vectors(int m, int code_size, bool aligned = true) {
+  return aligned && m * code_size == 16 ? 1 : 0;
+}
+
+inline int code_vectors(const void* codes, int m, int code_size) {
+  return code_vectors(m, code_size, (reinterpret_cast<uintptr_t>(codes) & 15) == 0);
+}
+
 // Write inf / -1 to the k entries of one output row; all 32 lanes call this.
 __device__ __forceinline__ void fill_empty(float* __restrict__ d, int* __restrict__ o, int k,
                                            int lane) {

@@ -129,14 +129,17 @@ def pq_adc_topk_qbuf(lut_pad: torch.Tensor, qbuf: torch.Tensor, codes: torch.Ten
 # ---------------------------------------------------------------- full, flat and batched
 # ``csrc/pq_adc.cu`` (counterpart of ``repro/kernels/pq_adc.py:pq_adc``) and
 # ``csrc/pq_adc_topk.cu`` (``pq_adc_topk``, ``pq_adc_topk_batched``); each
-# entry point counts its own launches
+# entry point counts its own launches. The full matrix and the flat top-k run
+# on the body ``csrc/adc_tile.cuh``, the batched top-k on ``csrc/adc_scan.cuh``.
 
 full_launches = 0
 flat_launches = 0
 batched_launches = 0
 
 _FULL = {torch.uint8: "pq_adc_u8", torch.uint16: "pq_adc_u16"}
+_FLAT = {torch.uint8: "pq_adc_topk_flat_u8", torch.uint16: "pq_adc_topk_flat_u16"}
 _TOPK = {torch.uint8: "pq_adc_topk_u8", torch.uint16: "pq_adc_topk_u16"}
+_PLAN = ("rows_per_block", "warps_per_block", "splits", "blocks_per_sm", "smem_bytes")
 
 
 def _full_lib():
@@ -147,8 +150,8 @@ def _full_lib():
             f = getattr(lib, fn)
             f.argtypes = [ptr, i32, i32, i32, ptr, i32, ptr, ptr]
             f.restype = i32
-        lib.pq_adc_smem_bytes.argtypes = [i32, i32]
-        lib.pq_adc_smem_bytes.restype = ctypes.c_longlong
+        lib.pq_adc_plan.argtypes = [i32] * 5 + [ptr]
+        lib.pq_adc_plan.restype = i32
         lib._typed = True
     return lib
 
@@ -159,24 +162,42 @@ def _topk_lib():
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         for fn in _TOPK.values():
             f = getattr(lib, fn)
-            f.argtypes = [ptr, i32, i32, i32, i32, ptr, ptr, ptr, ptr, i32, i32, i32,
-                          ptr, ptr, ptr, ptr, ptr]
+            f.argtypes = [ptr, i32, i32, i32, i32, ptr, ptr, ptr, ptr, i32, i32, ptr, ptr, ptr]
             f.restype = i32
+        for fn in _FLAT.values():
+            f = getattr(lib, fn)
+            f.argtypes = [ptr, i32, i32, i32, ptr, ptr, ptr, ptr, i32, i32, ptr, ptr, ptr, ptr]
+            f.restype = i32
+        lib.pq_adc_topk_flat_scratch_bytes.argtypes = [i32, i32]
+        lib.pq_adc_topk_flat_scratch_bytes.restype = ctypes.c_longlong
         lib.pq_adc_topk_smem_bytes.argtypes = [i32, i32, i32, i32]
         lib.pq_adc_topk_smem_bytes.restype = ctypes.c_longlong
-        lib.pq_adc_topk_splits.argtypes = [i32] * 7
-        lib.pq_adc_topk_splits.restype = i32
+        lib.pq_adc_topk_flat_plan.argtypes = [i32] * 6 + [ptr]
+        lib.pq_adc_topk_flat_plan.restype = i32
         lib._typed = True
     return lib
 
 
-def topk_splits(b: int, q: int, n: int, m: int, ks: int, k: int, code_size: int,
-                device) -> int:
-    """Ranges of whole 256-candidate tiles the ADC top-k kernel splits each of
-    b code sets of n rows into for q query rows each, on ``device``
-    (``pq_adc_topk_splits`` in ``csrc/pq_adc_topk.cu``)."""
+def _plan(fn, what: str, *args) -> dict:
+    out = (ctypes.c_longlong * len(_PLAN))()
+    _build.check(fn(*args, ctypes.addressof(out)), what)
+    return dict(zip(_PLAN, (int(v) for v in out)))
+
+
+def full_plan(q: int, n: int, m: int, ks: int, code_size: int, device) -> dict:
+    """``pq_adc``'s launch at these widths on ``device`` (``pq_adc_plan`` in
+    ``csrc/pq_adc.cu``): query rows a block (0: refused), warps a block,
+    candidate ranges, blocks resident on an SM, shared memory a block."""
     with torch.cuda.device(device):
-        return _topk_lib().pq_adc_topk_splits(b, q, n, m, ks, k, code_size)
+        return _plan(_full_lib().pq_adc_plan, "pq_adc_plan", q, n, m, ks, code_size)
+
+
+def flat_plan(q: int, n: int, m: int, ks: int, k: int, code_size: int, device) -> dict:
+    """The flat ``pq_adc_topk``'s launch at these widths on ``device``
+    (``pq_adc_topk_flat_plan`` in ``csrc/pq_adc_topk.cu``), as ``full_plan``."""
+    with torch.cuda.device(device):
+        return _plan(_topk_lib().pq_adc_topk_flat_plan, "pq_adc_topk_flat_plan", q, n, m, ks, k,
+                     code_size)
 
 
 def _check_codes(what: str, lut: torch.Tensor, codes: torch.Tensor, smem_bytes) -> None:
@@ -202,8 +223,12 @@ def pq_adc(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     global full_launches
     if codes.device.type == "cpu":
         return _ref.pq_adc_ref(lut, codes)
-    _check_codes("pq_adc", lut, codes,
-                 lambda size: _full_lib().pq_adc_smem_bytes(lut.shape[-2], lut.shape[-1]))
+
+    def smem(size):
+        return full_plan(lut.shape[0], codes.shape[0], lut.shape[-2], lut.shape[-1], size,
+                         codes.device)["smem_bytes"]
+
+    _check_codes("pq_adc", lut, codes, smem)
     if lut.ndim != 3 or codes.ndim != 2 or lut.shape[1] != codes.shape[1]:
         raise ValueError(f"pq_adc: lut {tuple(lut.shape)} vs codes {tuple(codes.shape)}")
     q, m, ks = lut.shape
@@ -215,18 +240,23 @@ def pq_adc(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, _FULL[codes.dtype])(lut.data_ptr(), q, m, ks, codes.data_ptr(), n,
                                                out.data_ptr(), stream)
-    if err:
-        _build.check(err, f"pq_adc (m={m}, ks={ks}: {lib.pq_adc_smem_bytes(m, ks)} B of "
+    if err:  # one row's LUT exceeds the shared memory of a block
+        _build.check(err, f"pq_adc (m={m}, ks={ks}: {smem(codes.element_size())} B of "
                           f"shared memory per block, Q={q})")
     full_launches += 1
     return out
 
 
-def _topk(lut, codes, cand_ids, k: int, cand_off, q_off, what: str):
+def _topk(lut, codes, cand_ids, k: int, cand_off, q_off, what: str, flat: bool):
     """Launch the ADC top-k over lut [B, Q, m, ks] × codes [B, N, m] (checked
-    here)."""
-    _check_codes(what, lut, codes, lambda size: _topk_lib().pq_adc_topk_smem_bytes(
-        lut.shape[-2], lut.shape[-1], k, size))
+    here): the flat scan (B = 1) or the batched one."""
+    def smem(size):
+        if flat:
+            return flat_plan(lut.shape[1], codes.shape[1], lut.shape[-2], lut.shape[-1], k, size,
+                             codes.device)["smem_bytes"]
+        return _topk_lib().pq_adc_topk_smem_bytes(lut.shape[-2], lut.shape[-1], k, size)
+
+    _check_codes(what, lut, codes, smem)
     if cand_ids.dtype != torch.int32:
         raise TypeError(f"{what}: cand_ids must be int32")
     offsets = {"cand_off": cand_off, "q_off": q_off}
@@ -250,25 +280,27 @@ def _topk(lut, codes, cand_ids, k: int, cand_off, q_off, what: str):
     lut, codes, cand_ids = lut.contiguous(), codes.contiguous(), cand_ids.contiguous()
     cand_off, q_off = (None if t is None else t.contiguous() for t in (cand_off, q_off))
     lib = _topk_lib()
-    splits = topk_splits(b, q, n, m, ks, k, codes.element_size(), codes.device)
     od = torch.empty((b, q, k), dtype=torch.float32, device=codes.device)
     oi = torch.empty((b, q, k), dtype=torch.int32, device=codes.device)
-    pd = pc = None
-    if splits > 1:  # the partial lists of each candidate range
-        pd = torch.empty((b, splits, q, k), dtype=torch.float32, device=codes.device)
-        pc = torch.empty((b, splits, q, k), dtype=torch.int32, device=codes.device)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, _TOPK[codes.dtype])(
-            lut.data_ptr(), b, q, m, ks, codes.data_ptr(), cand_ids.data_ptr(),
-            None if cand_off is None else cand_off.data_ptr(),
-            None if q_off is None else q_off.data_ptr(), n, k, splits,
-            None if pd is None else pd.data_ptr(), None if pc is None else pc.data_ptr(),
-            od.data_ptr(), oi.data_ptr(), stream)
+        head = (codes.data_ptr(), cand_ids.data_ptr(), ptr(cand_off), ptr(q_off), n, k)
+        if flat:  # each row's bound and running list, kept in device memory
+            scratch = torch.empty(lib.pq_adc_topk_flat_scratch_bytes(q, k), dtype=torch.uint8,
+                                  device=codes.device)
+            err = getattr(lib, _FLAT[codes.dtype])(lut.data_ptr(), q, m, ks, *head,
+                                                   scratch.data_ptr(), od.data_ptr(),
+                                                   oi.data_ptr(), stream)
+        else:
+            err = getattr(lib, _TOPK[codes.dtype])(lut.data_ptr(), b, q, m, ks, *head,
+                                                   od.data_ptr(), oi.data_ptr(), stream)
     if err:  # e.g. one row's LUT and list exceed the shared memory of a block
-        _build.check(err, f"{what} (m={m}, ks={ks}, k={k}: "
-                          f"{lib.pq_adc_topk_smem_bytes(m, ks, k, codes.element_size())} B of "
-                          f"shared memory per block, {splits} splits)")
+        _build.check(err, f"{what} (m={m}, ks={ks}, k={k}: {smem(codes.element_size())} B of "
+                          f"shared memory per block)")
     return od, oi
 
 
@@ -289,7 +321,7 @@ def pq_adc_topk(lut: torch.Tensor, codes: torch.Tensor, cand_ids: torch.Tensor, 
                          f"ids {tuple(cand_ids.shape)}")
     od, oi = _topk(lut[None], codes[None], cand_ids[None], k,
                    None if cand_off is None else cand_off[None],
-                   None if q_off is None else q_off[None], "pq_adc_topk")
+                   None if q_off is None else q_off[None], "pq_adc_topk", True)
     flat_launches += 1
     return od[0], oi[0]
 
@@ -306,6 +338,6 @@ def pq_adc_topk_batched(lut: torch.Tensor, codes: torch.Tensor, cand_ids: torch.
     if lut.ndim != 4 or codes.ndim != 3:
         raise ValueError(f"pq_adc_topk_batched: lut {tuple(lut.shape)}, codes "
                          f"{tuple(codes.shape)}")
-    od, oi = _topk(lut, codes, cand_ids, k, cand_off, q_off, "pq_adc_topk_batched")
+    od, oi = _topk(lut, codes, cand_ids, k, cand_off, q_off, "pq_adc_topk_batched", False)
     batched_launches += 1
     return od, oi

@@ -287,8 +287,35 @@ _ADC_CASES = {
     # cand_off, not the LUT: the JAX kernels' one-hot contraction turns a
     # whole LUT row NaN, 0 * inf.)
     "non-finite distances": lambda w: dict(n=2048, offsets=True, nonfinite=True),
+    # query counts that are no multiple of the flat kernels' rows a block (R)
+    "one query row": lambda w: dict(s=1, empty_frac=0.0),
+    "seven query rows": lambda w: dict(s=7, offsets=True),
+    "nine query rows": lambda w: dict(s=9, offsets=True),
+    # 16 codewords: R = 32 rows a block, every gather free of bank conflicts
+    "ks 16": lambda w: dict(ks=16, offsets=True),
+    # codes one element past a 16-byte boundary (ADC_UNALIGNED): the kernels
+    # read them element by element
+    "unaligned codes": lambda w: dict(offsets=True),
+    # lists too large for the flat top-k's widest row group, so its plan
+    # takes fewer rows a block; at the main width no merge fits either
+    "k over a block's lists": lambda w: dict(k=250 * w["m"], n=300 * w["m"]),
+    # LUT rows of 64 and 128 KB: two rows and one row a block
+    "two rows a block": lambda w: dict(ks=16384 // w["m"], offsets=True),
+    "one row a block": lambda w: dict(ks=32768 // w["m"], offsets=True),
 }
 ADC_CASES = tuple(_ADC_CASES)
+# cases whose codes are to lie off a 16-byte boundary (``unaligned``)
+ADC_UNALIGNED = ("unaligned codes",)
+
+
+def unaligned(codes: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``codes`` that starts one element past a 16-byte
+    boundary (a view into a larger buffer, on the same device)."""
+    buf = codes.new_empty(codes.numel() + 16 // codes.element_size())
+    off = (-(buf.data_ptr() % 16) // codes.element_size()) % (16 // codes.element_size()) + 1
+    out = buf[off:off + codes.numel()].view(codes.shape)
+    out.copy_(codes)
+    return out
 
 
 def adc_case(case: str, *, width: str = "small", seed: int = 0):

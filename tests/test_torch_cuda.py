@@ -64,6 +64,8 @@ def test_dedup_topk_kernel_matches_plain(cuda_device, case):
 def _adc_inputs(case, dev, seed):
     (lut_pad, qbuf, codes, ids, coff, qoff), k, _ = rt.adc_case(case, seed=seed)
     args = [torch.from_numpy(a).to(dev) for a in (lut_pad, qbuf, codes, ids)]
+    if case in rt.ADC_UNALIGNED:
+        args[2] = rt.unaligned(args[2])
     offs = {name: None if a is None else torch.from_numpy(a).to(dev)
             for name, a in (("cand_off", coff), ("q_off", qoff))}
     return args, offs, k
@@ -327,6 +329,8 @@ def _expanded_inputs(case, dev, seed):
     arrays, k, _ = rt.adc_case(case, seed=seed)
     lut_pad, qbuf, codes, ids, coff, qoff = (None if a is None else torch.from_numpy(a).to(dev)
                                              for a in arrays)
+    if case in rt.ADC_UNALIGNED:
+        codes = rt.unaligned(codes)
     return ((lut_pad[qbuf.long()], codes, ids), dict(cand_off=coff, q_off=qoff), k,
             [lut_pad, qbuf, codes, ids])
 
@@ -347,8 +351,9 @@ def test_pq_adc_kernel_equals_plain(cuda_device, case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", rt.ADC_CASES)
 def test_pq_adc_topk_kernel_equals_plain(cuda_device, case):
-    """The flat scan, split into candidate ranges and merged, equals the
-    plain version: distances and ids (ties to the lower position)."""
+    """The flat scan, split into candidate ranges folded into each row's
+    list, equals the plain version: distances and ids (ties to the lower
+    position)."""
     (lut, codes, ids), offs, k, _ = _expanded_inputs(case, cuda_device, 31)
     for b in (0, 1):
         ob = {n: None if t is None else t[b] for n, t in offs.items()}
@@ -360,12 +365,70 @@ def test_pq_adc_topk_kernel_equals_plain(cuda_device, case):
         assert torch.equal(kd, pd) and torch.equal(ki, pi)
 
 
+def _last_wave_fill(plan, q, splits, sms):
+    """The share of the last wave's block places that ``splits`` candidate
+    ranges of ``q`` query rows fill."""
+    blocks = -(-q // plan["rows_per_block"]) * splits
+    slots = plan["blocks_per_sm"] * sms
+    return blocks / (-(-blocks // slots) * slots)
+
+
+@pytest.mark.cuda
+def test_flat_adc_plans_take_rows_by_lut_and_list_size(cuda_device):
+    """The flat kernels' rows a block follow the shared memory a row needs:
+    8 at the main widths, 32 at ks = 16, fewer where the top-k's lists grow,
+    one at 128 KB rows. Where 1,000 rows' groups leave the last wave part
+    empty, the plan takes the fewest candidate ranges that fill it to 98%."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    full = adc_mod.full_plan(1000, 10**6, 16, 256, 1, cuda_device)
+    assert full["rows_per_block"] == 8
+    assert adc_mod.full_plan(1000, 10**6, 16, 16, 1, cuda_device)["rows_per_block"] == 32
+    assert adc_mod.full_plan(12, 60, 16, 2048, 2, cuda_device)["rows_per_block"] == 1
+    flat = adc_mod.flat_plan(1000, 10**6, 16, 256, 100, 1, cuda_device)
+    wide = adc_mod.flat_plan(1000, 10**6, 16, 256, 4000, 1, cuda_device)
+    assert flat["rows_per_block"] == 8
+    assert wide["rows_per_block"] < 8 and wide["smem_bytes"] <= 232448
+    for plan in (full, flat, wide):
+        assert _last_wave_fill(plan, 1000, 1, sms) < 0.98 < plan["splits"]  # one range leaves it
+        assert _last_wave_fill(plan, 1000, plan["splits"], sms) >= 0.98
+        assert _last_wave_fill(plan, 1000, plan["splits"] - 1, sms) < 0.98
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aligned", (True, False), ids=("aligned", "unaligned"))
+@pytest.mark.parametrize("m, ks", ((16, 256), (8, 512)), ids=("uint8", "uint16"))
+def test_flat_adc_kernels_on_16_byte_code_rows(cuda_device, m, ks, aligned):
+    """Code rows of 16 bytes (m · code size = 16), the main path's width:
+    aligned, the flat kernels read a row with one 16-byte load; one element
+    past a 16-byte boundary, element by element. ``pq_adc`` equals the plain
+    version bit for bit, the flat top-k (offsets and holes, several candidate
+    ranges) in distances and ids."""
+    g = torch.Generator().manual_seed(37)
+    q, n, k = 9, 2000, 20
+    dtype = torch.uint8 if ks <= 256 else torch.uint16
+    lut = torch.rand((q, m, ks), generator=g).to(cuda_device)
+    codes = torch.randint(0, ks, (n, m), generator=g).to(dtype).to(cuda_device)
+    if not aligned:
+        codes = rt.unaligned(codes)
+    assert (codes.data_ptr() % 16 == 0) == aligned
+    ids = torch.arange(n, dtype=torch.int32)
+    ids[torch.randperm(n, generator=g)[:n // 10]] = -1
+    ids = ids.to(cuda_device)
+    offs = dict(cand_off=torch.rand(n, generator=g).to(cuda_device),
+                q_off=torch.rand(q, generator=g).to(cuda_device))
+    assert adc_mod.flat_plan(q, n, m, ks, k, codes.element_size(), cuda_device)["splits"] > 1
+    assert torch.equal(adc_mod.pq_adc(lut, codes), tref.pq_adc_ref(lut, codes))
+    kd, ki = adc_mod.pq_adc_topk(lut, codes, ids, k, **offs)
+    pd, pi = tref.pq_adc_topk_ref(lut, codes, ids, k, **offs)
+    assert torch.equal(kd, pd) and torch.equal(ki, pi)
+
+
 @pytest.mark.cuda
 def test_pq_adc_topk_ties_across_ranges_go_to_the_lower_position(cuda_device):
     (lut, codes, ids), _, k, _ = _expanded_inputs("exact ties across ranges", cuda_device, 32)
     lut, codes, ids = lut[1], codes[1], ids[1]
-    splits = adc_mod.topk_splits(1, lut.shape[0], codes.shape[0], codes.shape[1], lut.shape[2],
-                                 k, codes.element_size(), cuda_device)
+    splits = adc_mod.flat_plan(lut.shape[0], codes.shape[0], codes.shape[1], lut.shape[2], k,
+                               codes.element_size(), cuda_device)["splits"]
     assert splits > 1  # the tie partners half a set apart lie in other ranges
     kd, ki = adc_mod.pq_adc_topk(lut, codes, ids, k)
     pd, pi = tref.pq_adc_topk_ref(lut, codes, ids, k)
