@@ -36,10 +36,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                                and again at rerank 16, where it must be
                                ≥ 0.9 and within 0.03 of the f32 path's;
                then one batch per path served again with impl="ref" must
-               agree, and one batch per path is profiled;
+               agree;
   5. pq      — a second engine with tier pq at 100,000 base points (same
-               widths): launches, recall@100 against its own f32 tier, and
-               cuda vs ref;
+               widths), built twice from one seed (every probing parameter
+               and store plane equal bit for bit): launches, recall@100
+               against its own f32 tier, and cuda vs ref;
   6. kernels — each kernel against its plain version on the inputs the main
                paths gave it, timed with CUDA events beside its bound;
                l2_topk_qbuf also with every dispatch slot empty and over
@@ -84,6 +85,37 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                its codes, slots and offsets at rk = 400: equal to its plain
                version on every slot and, on the occupied slots, to
                pq_adc_topk_qbuf bit for bit; timed.
+ 13. surface — the serve surface of the main engine: one batch of each path
+               (f32, residual_pq at rerank 4 and 16) with a Tracer on, under
+               obs.profile_capture, equal bit for bit to the same batch with
+               both off, and its device time per profiler range
+               (lira.probing / dispatch / scan / merge) and within each range
+               by operation, beside the batch's wall time and the device's
+               busy time (a capture counts only when every device event is
+               matched to its launch and none is lost); a new σ misses the serve cache and a second
+               search of its bucket hits; on the f32 and the residual_pq
+               path a front-end (time.monotonic, max_batch 1,000;
+               q_cap_factor B / nprobe_max, so no probe can be dropped)
+               takes 1,000 single-query requests: p50 / p99 latency, QPS,
+               mean batch rows, each answer held against one solo search()
+               of the same queries under the comparison rule (rows equal bit
+               for bit counted, and those equal to a direct search of the
+               batch they rode in); the pq engine of phase 5
+               saved and loaded, one batch equal bit for bit;
+ 14. churn   — on the main engine, in shares of its 1M base rows: 50,000
+               deletes, a batch at f32 and residual_pq (no deleted id, the
+               three serve kernels launched), compact(), the same batches
+               equal bit for bit; five rounds of 30,000 deletes, 20,000
+               inserts (base rows plus noise at 1% of the base's standard
+               deviation) and maybe_repartition(), an f32 batch each with
+               l2_topk_qbuf and dedup_topk launched; noisy copies of the
+               hottest partition's centroid beyond its window's free slots
+               (capacity grows ≥ 1.5x, the epoch bumps, the next search
+               misses the cache, cuda vs ref agrees on both paths); a forced
+               repartition, then recall@100 of both paths against exact
+               ground truth over the live rows (f32 ≥ 0.9) beside a fresh
+               build of the live rows; wall seconds of each operation, peak
+               device memory, the card's name and power limit.
 Phases 7-12 zero their kernel's launch counter just before the path and read
 it just after. Every matmul runs in full f32 (TF32 off for matmul and cuDNN),
 so the plain versions are exact oracles.
@@ -394,32 +426,6 @@ def ptxas_report(name: str, entry: str) -> dict:
 def bound_entry(nbytes, ops, peak):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def profile_batch(eng, queries, what, **search_kw) -> None:
-    """One served batch under torch.profiler: device time by operation, and
-    the device's busy share of the batch's wall time (the profiler's own
-    host overhead lengthens the wall time, so the share is a lower bound)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    eng.search(queries, **search_kw)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
-        t0 = time.perf_counter()
-        eng.search(queries, **search_kw)
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side events only: an aten op also reports its kernels' time
-    ops = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in ops) / 1e3
-    if not ops:
-        log(f"profile {what}: torch.profiler saw no device time: not measured")
-        return
-    log(f"profile {what}: one batch of {len(queries)}: wall {wall_ms:.2f} ms under the "
-        f"profiler, device busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%)")
-    for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:14]:
-        log(f"profile   {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:100]}")
 
 
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, bound, shapes):
@@ -901,6 +907,346 @@ def cuda_vs_ref(eng, q0, tier, what) -> None:
         f"atol {atol:.3g})")
 
 
+# ---------------------------------------------------------------- serve surface and churn
+
+def same_bits(a, b) -> bool:
+    """Two SearchResults equal bit for bit: answers and counters."""
+    import numpy as np
+
+    return (np.array_equal(a.dists, b.dists) and np.array_equal(a.ids, b.ids)
+            and np.array_equal(a.nprobe_eff, b.nprobe_eff) and a.overflow == b.overflow
+            and a.stats.dedup_hits == b.stats.dedup_hits)
+
+
+def range_profile(engine, queries, tier, what, captures: int = 3, attempts: int = 6) -> dict:
+    """One batch with a Tracer attached, under ``profile_capture`` (the serve
+    step's four ranges recorded), held bit for bit against the same batch
+    with neither; logs the batch's wall time under the profiler, the
+    device's busy time, and the device time of each range and, within it,
+    of each operation. The profiler has been seen to drop a capture's device
+    records, so a capture counts only when ``range_times`` matched every
+    device event to the runtime call that launched it, found a device event
+    for every launch, copy and fill call, and saw device time in every
+    range. Up to ``attempts`` captures are taken until ``captures`` are
+    complete, else the phase fails; the complete capture whose device time
+    inside the ranges is the median is reported. Returns {"wall": ms,
+    "busy": ms, range: ms, ...}."""
+    import torch
+
+    from repro_torch.obs import Tracer, profile_capture, range_times
+
+    off = engine.search(queries, tier=tier)
+    torch.cuda.synchronize()
+    trace_dir = os.path.join(ROOT, "build", "profile", what.replace(" ", "_"))
+    good, bad = [], []
+    while len(good) < captures and len(good) + len(bad) < attempts:
+        engine.tracer = Tracer()
+        try:
+            with profile_capture(trace_dir) as prof:
+                t0 = time.perf_counter()
+                on = engine.search(queries, tier=tier)
+                wall = (time.perf_counter() - t0) * 1e3
+        finally:
+            engine.tracer = None
+        if not same_bits(off, on):
+            raise AssertionError(f"{what}: the traced, profiled batch differs from the plain one")
+        times = range_times(prof)
+        empty = [n for n, rec in times["ranges"].items() if not rec["device_ms"] > 0]
+        if times["unmatched"]["events"] or times["lost"] or empty:
+            bad.append(f"{times['unmatched']['events']} device events unmatched "
+                       f"({times['unmatched']['device_ms']:.3f} ms), {times['lost']} launches "
+                       f"without a device event, no device time in {empty}")
+            continue
+        in_ranges = sum(rec["device_ms"] for rec in times["ranges"].values())
+        good.append((in_ranges, wall, times, on))
+    for reason in bad:
+        log(f"ranges {what}: capture dropped: {reason}")
+    if len(good) < captures:
+        raise AssertionError(f"{what}: {len(good)} complete profiler captures of "
+                             f"{len(good) + len(bad)}")
+    in_ranges, wall, times, on = sorted(good, key=lambda run: run[0])[len(good) // 2]
+    busy, out = times["busy_ms"], times["outside"]
+    stages = ", ".join(f"{k} {v:.2f}" for k, v in on.stats.stages.items())
+    log(f"ranges {what}: equal bit for bit with the ranges and a Tracer on and off; one "
+        f"batch of {len(queries)}: wall {wall:.3f} ms under the profiler, device busy "
+        f"{busy:.3f} ms ({100 * busy / wall:.1f}%), {in_ranges:.3f} of it inside the ranges, "
+        f"{out['device_ms']:.3f} outside ("
+        + ", ".join(f"{op[:32]} {ms:.3f}" for op, ms in list(out["ops"].items())[:3])
+        + f"); {times['events']} device events, each matched to the call that launched it, "
+        f"none lost; {len(good)} complete captures of {len(good) + len(bad)}, in the ranges "
+        + ", ".join(f"{run[0]:.3f}" for run in good) + f" ms; spans (ms): {stages}; traces "
+        f"under {os.path.relpath(trace_dir, ROOT)}")
+    for name, rec in times["ranges"].items():
+        ops = ", ".join(f"{op[:48]} {ms:.3f}" for op, ms in list(rec["ops"].items())[:6])
+        log(f"ranges {what}:   {name:13s} {rec['device_ms']:8.3f} ms | {ops}")
+    return {"wall": wall, "busy": busy,
+            **{name: rec["device_ms"] for name, rec in times["ranges"].items()}}
+
+
+def serve_surface_phase(eng, deep, eng_pq, ds) -> None:
+    """13. The serve surface on the main engine: (a) per-range device time
+    of each path, traced and profiled batches equal to plain ones; (b) the
+    serve cache; (c) on the f32 and the residual_pq path, a front-end taking
+    1,000 single-query requests, held against one solo search of the same
+    queries and against a direct search of each batch; (d) save and load of
+    the pq engine."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch import testing as rt
+    from repro_torch.configs.base import FrontendConfig
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.serving.api import SearchRequest
+    from repro_torch.serving.engine import LiraEngine
+
+    q = ds.queries[2 * BATCH:3 * BATCH]
+    for what, engine, tier in (("f32", eng, "f32"), ("residual_pq", eng, "residual_pq"),
+                               ("residual_pq rerank 16", deep, "residual_pq")):
+        range_profile(engine, q, tier, f"surface {what}")
+
+    # (b) the serve cache: a new σ misses, the same bucket again hits
+    eng.metrics = MetricsRegistry()
+    first = eng.search(q, sigma=0.45)
+    again = eng.search(q[:900], sigma=0.45)
+    if first.stats.cache_hit or not again.stats.cache_hit or again.stats.bucket != 1024:
+        raise AssertionError(f"serve cache: first {first.stats.cache_hit}, second "
+                             f"{again.stats.cache_hit} (bucket {again.stats.bucket})")
+    m = eng.metrics
+    log(f"surface serve cache: a new sigma missed, the same bucket hit; {len(eng._serve_cache)} "
+        f"entries; registry: searches {m.counter('lira_engine_searches_total').total():.0f}, "
+        f"hits {m.counter('lira_engine_jit_cache_hits_total').total():.0f}, misses "
+        f"{m.counter('lira_engine_jit_cache_misses_total').total():.0f}, overflow rate "
+        f"{eng.overflow_rate():.5f}")
+    eng.metrics = None
+
+    # (c) the front-end, on each path. q_cap = the bucket's rows (q_cap_factor
+    # B / nprobe_max), so no probe can be dropped: coalescing must then not
+    # change an answer. The f32 path's distances come from l2_topk_qbuf, one
+    # fmaf chain a (row, candidate) whatever the batch; residual_pq's stage 2
+    # (gathers, bmm) runs at shapes set by the bucket's q_cap
+    fe_eng = dataclasses.replace(eng, cfg=dataclasses.replace(
+        eng.cfg, q_cap_factor=eng.cfg.n_partitions / eng.cfg.nprobe_max))
+    atol = rt.l2_atol(q, eng.store["vectors"], eng.store["ids"])
+    for tier in ("f32", "residual_pq"):
+        solo = fe_eng.search(q, tier=tier)
+        fe = fe_eng.attach_frontend(FrontendConfig(max_batch=1000), clock=time.monotonic)
+        pend = []
+        t0 = time.perf_counter()
+        for row in q:
+            pend.append(fe.submit(SearchRequest(queries=row, tier=tier)))
+            fe.poll()
+        fe.drain()
+        wall = time.perf_counter() - t0
+        st = fe.stats()
+        res = [p.result() for p in pend]
+        if solo.overflow or any(r.stats.shed or r.overflow for r in res) or st.served != len(q):
+            raise AssertionError(f"front-end {tier}: {st}, solo overflow {solo.overflow}")
+        fe_eng.frontend = None
+        n_bits = n_probe = n_ids = 0
+        err = 0.0
+        for i, r in enumerate(res):
+            if not np.array_equal(r.nprobe_eff, solo.nprobe_eff[i:i + 1]):
+                n_probe += 1    # the probing MLP's bits moved a σ near-tie
+                continue
+            err = max(err, rt.assert_topk_match(r.dists, r.ids, solo.dists[i:i + 1],
+                                                solo.ids[i:i + 1], atol,
+                                                what=f"front-end {tier} row {i} vs solo"))
+            n_ids += bool(np.array_equal(r.ids, solo.ids[i:i + 1]))
+            n_bits += bool(np.array_equal(r.dists, solo.dists[i:i + 1])
+                           and np.array_equal(r.ids, solo.ids[i:i + 1]))
+        if n_probe > len(q) // 100:
+            raise AssertionError(f"front-end {tier}: {n_probe} rows probed other partitions "
+                                 f"than solo")
+        # the same rows against a direct search of the batch each rode in
+        # (requests flush in order, so batch b holds the next batch_size rows)
+        n_batch_bits = i = 0
+        while i < len(res):
+            rows = res[i].stats.batch_size
+            direct = fe_eng.search(q[i:i + rows], tier=tier)
+            n_batch_bits += sum(bool(np.array_equal(res[i + j].dists, direct.dists[j:j + 1])
+                                     and np.array_equal(res[i + j].ids, direct.ids[j:j + 1]))
+                                for j in range(rows))
+            i += rows
+        log(f"surface front-end {tier} (time.monotonic, max_batch {fe.max_batch}, max_wait "
+            f"{fe.cfg.max_wait_ms} ms, q_cap_factor {fe_eng.cfg.q_cap_factor:g}): {st.served} "
+            f"single-query requests in {st.batches} batches, mean {st.mean_batch:.1f} rows; "
+            f"p50 {st.p50_ms:.3f} ms, p99 {st.p99_ms:.3f} ms, {st.qps:.1f} QPS "
+            f"({len(q) / wall:.1f} over the submit loop's wall {wall:.3f} s); against one solo "
+            f"search of the same {len(q)} queries: {n_bits} rows equal bit for bit, "
+            f"{len(q) - n_bits - n_probe} within the rule ({n_ids} of all with ids equal in "
+            f"order, max abs distance error {err:.3g}, atol {atol:.3g}), {n_probe} with "
+            f"another nprobe_eff; {n_batch_bits} equal bit for bit to a direct search() of "
+            f"the batch each rode in")
+
+    # (d) save and load of the pq engine of phase 5
+    ckpt = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t0 = time.perf_counter()
+    step_dir = eng_pq.save(ckpt)
+    t_save = time.perf_counter() - t0
+    size = sum(f.stat().st_size for f in step_dir.iterdir())
+    t0 = time.perf_counter()
+    back = LiraEngine.load(ckpt, device="cuda")
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    bad = [n for n in eng_pq.store if not torch.equal(eng_pq.store[n], back.store[n])]
+    a, b = eng_pq.search(q, tier="pq"), back.search(q, tier="pq")
+    if bad or not same_bits(a, b) or back.epoch != eng_pq.epoch:
+        raise AssertionError(f"pq save/load: planes {bad} differ or the batch differs")
+    log(f"surface pq save {t_save:.2f} s ({size / 2**30:.3f} GiB on disk), load {t_load:.2f} s; "
+        f"every store plane and one batch of {len(q)} equal bit for bit")
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def churn_phase(eng, ds, counters, smi) -> None:
+    """14. Churn on the main engine, in shares of its N = 1,000,000 base rows:
+    (a) N/20 deletes, searches with holes, then compact, the same searches
+    equal bit for bit; (b) five rounds of 3N/100 deletes, N/50 inserts and
+    maybe_repartition, a batch each with the kernels' launches counted; (c)
+    inserts that force growth; (d) a forced repartition and recall against
+    exact ground truth over the live set and against a fresh build; (e) wall
+    times and peak memory."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import ground_truth as gt
+    from repro_torch.core.metrics import recall_at_k
+    from repro_torch.serving import mutable
+    from repro_torch.serving.api import BuildConfig
+    from repro_torch.serving.engine import LiraEngine
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(14)
+    n, d = ds.base.shape
+    q = ds.queries[:BATCH]
+    walls: dict = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls.setdefault(name, []).append(time.perf_counter() - t0)
+        return out
+
+    def counted(fn, names):
+        for mod in counters.values():
+            mod.launches = 0
+        out = fn()
+        launches = {name: counters[name].launches for name in names}
+        require_launched("churn", launches, names)
+        return out, launches
+
+    order = rng.permutation(n)          # base ids in the order they are deleted
+    n_dead, n_del, n_ins = n // 20, 3 * n // 100, n // 50
+    # (a) tombstones, then compaction
+    slots = timed("delete", lambda: eng.delete(order[:n_dead]))
+    holey, launches = counted(lambda: {t: eng.search(q, tier=t) for t in ("f32", "residual_pq")},
+                              ("l2_topk_qbuf", "pq_adc_topk_qbuf", "dedup_topk"))
+    for tier, r in holey.items():
+        if np.isin(r.ids, order[:n_dead]).any():
+            raise AssertionError(f"churn: a deleted id surfaced ({tier})")
+    cap0 = eng.cfg.capacity
+    reclaimed = timed("compact", eng.compact)
+    for tier, r in holey.items():
+        if not same_bits(r, eng.search(q, tier=tier)):
+            raise AssertionError(f"churn: the compacted store serves other bits ({tier})")
+    log(f"churn  (a) deleted {n_dead} ids ({slots} slots with replicas); no deleted id in "
+        f"{len(q)} queries at f32 and residual_pq (launches {launches}); compact: capacity "
+        f"{cap0} -> {eng.cfg.capacity} ({reclaimed} slots), the same searches equal bit for "
+        f"bit; delete {walls['delete'][0]:.3f} s, compact {walls['compact'][0]:.3f} s")
+
+    # (b) churn rounds: new rows are base rows plus noise at 1% of the base's
+    # per-dimension standard deviation, ids from N up
+    std = ds.base.std(0)
+    new_x, new_ids = [], []
+    for rnd in range(5):
+        dead = order[n_dead:n_dead + n_del]
+        n_dead += n_del
+        timed("delete", lambda: eng.delete(dead))
+        x = (ds.base[rng.choice(n, n_ins, replace=False)]
+             + rng.normal(0, 1, (n_ins, d)) * 0.01 * std).astype(np.float32)
+        ids = np.arange(n_ins) + n + n_ins * rnd
+        timed("insert", lambda: eng.insert(x, ids))
+        new_x.append(x)
+        new_ids.append(ids)
+        fired = timed("maybe_repartition", eng.maybe_repartition)
+        r, launches = counted(lambda: timed("search", lambda: eng.search(q, tier="f32")),
+                              ("l2_topk_qbuf", "dedup_topk"))
+        if np.isin(r.ids, order[:n_dead]).any():
+            raise AssertionError(f"churn round {rnd}: a deleted id surfaced")
+        log(f"churn  (b) round {rnd}: -{n_del} +{n_ins}, repartition {'ran' if fired else 'not due'}"
+            f", staleness {eng.staleness():.4f}, capacity {eng.cfg.capacity}, epoch {eng.epoch}; "
+            f"f32 batch launches {launches}, cache hit {r.stats.cache_hit}; delete "
+            f"{walls['delete'][-1]:.3f} s, insert {walls['insert'][-1]:.3f} s, check "
+            f"{walls['maybe_repartition'][-1]:.3f} s, search {walls['search'][-1]:.3f} s")
+    churned = n // 20 + 5 * (n_del + n_ins)
+    log(f"churn  (b) {churned} rows churned, {churned / n:.0%} of the base")
+
+    # (c) noisy copies of the hottest partition's centroid, more than the free
+    # slots of its PLACE_WINDOW nearest partitions: the store must grow
+    occ, cents = eng.store["occupancy"], eng.store["centroids"]
+    hot = int(torch.argmax(occ.sum(1)))
+    near = torch.sort(((cents - cents[hot]) ** 2).sum(1), stable=True).indices[
+        :mutable.PLACE_WINDOW]
+    n_hot = int((~occ[near]).sum()) + 1000
+    hot_x = (cents[hot].cpu().numpy()[None]
+             + rng.normal(0, 1, (n_hot, d)) * 0.01 * std).astype(np.float32)
+    hot_ids = np.arange(n_hot) + 2 * n
+    cap1, epoch1 = eng.cfg.capacity, eng.epoch
+    timed("insert (grow)", lambda: eng.insert(hot_x, hot_ids))
+    r = eng.search(q, tier="f32")
+    if eng.cfg.capacity < 1.5 * cap1 or eng.epoch != epoch1 + 1 or r.stats.cache_hit:
+        raise AssertionError(f"churn growth: capacity {cap1} -> {eng.cfg.capacity}, epoch "
+                             f"{epoch1} -> {eng.epoch}, cache hit {r.stats.cache_hit}")
+    log(f"churn  (c) {n_hot} copies of partition {hot}'s centroid: capacity {cap1} -> "
+        f"{eng.cfg.capacity}, epoch {epoch1} -> {eng.epoch}, the next search a cache miss; "
+        f"insert {walls['insert (grow)'][0]:.3f} s")
+    # a batch of 128 rows: the plain scan's [B, q_cap, capacity] distances
+    # stay a few GB at the grown capacity
+    for tier in ("f32", "residual_pq"):
+        cuda_vs_ref(eng, q[:128], tier, f"churn  (c) grown {tier}")
+
+    # (d) a forced repartition, then recall@100 over the live set
+    timed("repartition", lambda: eng.maybe_repartition(force=True))
+    alive = np.sort(order[n_dead:])
+    live_x = np.concatenate([ds.base[alive], *new_x, hot_x])
+    live_ids = np.concatenate([alive, *new_ids, hot_ids])
+    if int(eng.store["occupancy"].sum()) < len(live_ids):
+        raise AssertionError("churn: fewer live slots than live rows after the repartition")
+    _, gti = gt.exact_knn(q, live_x, 100, device="cuda")
+    gt_ids = live_ids[gti]
+    recall = {t: recall_at_k(eng.search(q, tier=t).ids, gt_ids, 100)
+              for t in ("f32", "residual_pq")}
+    t0 = time.perf_counter()
+    fresh = LiraEngine.build(live_x, BuildConfig(tier="residual_pq", **MAIN_BUILD), device="cuda")
+    torch.cuda.synchronize()
+    t_fresh = time.perf_counter() - t0
+    fresh_rec = {}
+    for t in ("f32", "residual_pq"):
+        ids = fresh.search(q, tier=t).ids
+        fresh_rec[t] = recall_at_k(np.where(ids >= 0, live_ids[ids], -1), gt_ids, 100)
+    del fresh
+    log(f"churn  (d) forced repartition {walls['repartition'][0]:.3f} s: capacity "
+        f"{eng.cfg.capacity}, staleness {eng.staleness():.4f}; recall@100 over {len(live_ids)} "
+        f"live rows at sigma {eng.sigma}: f32 {recall['f32']:.4f}, residual_pq "
+        f"{recall['residual_pq']:.4f}; a fresh build of the live set ({t_fresh:.1f} s): f32 "
+        f"{fresh_rec['f32']:.4f}, residual_pq {fresh_rec['residual_pq']:.4f}; gaps "
+        f"{fresh_rec['f32'] - recall['f32']:+.4f} / "
+        f"{fresh_rec['residual_pq'] - recall['residual_pq']:+.4f} (the reference's epsilon 0.02)")
+    if recall["f32"] < 0.9:
+        raise AssertionError(f"churn: f32 recall@100 {recall['f32']:.4f} < 0.9")
+
+    # (e)
+    log(f"churn  (e) wall seconds: " + ", ".join(
+        f"{k} {sum(v):.3f} (x{len(v)})" for k, v in walls.items())
+        + f"; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"{smi}; phase {time.perf_counter() - t_phase:.1f} s")
+
+
 # ---------------------------------------------------------------- phases
 
 def main(n_base: int = N_BASE, n_queries: int = N_QUERIES) -> int:
@@ -1001,9 +1347,6 @@ def main(n_base: int = N_BASE, n_queries: int = N_QUERIES) -> int:
         setattr(kops, name, fn)
     for tier in ("f32", "residual_pq"):
         cuda_vs_ref(eng, ds.queries[:BATCH], tier, f"main   {tier}")
-    for what, engine, tier in (("f32", eng, "f32"), ("residual_pq", eng, "residual_pq"),
-                               ("residual_pq rerank 16", deep, "residual_pq")):
-        profile_batch(engine, ds.queries[BATCH:2 * BATCH], f"main {what}", tier=tier)
     # f32 reaches ~0.96 on an H100 and residual_pq ~0.89 at rerank 4 (PQ's
     # distortion on this data pushes true neighbours out of a 400-slot
     # shortlist); a broken build, dispatch, ADC scan, rerank or merge lands
@@ -1025,6 +1368,16 @@ def main(n_base: int = N_BASE, n_queries: int = N_QUERIES) -> int:
     torch.cuda.synchronize()
     log(f"pq     build over {len(pq_base)} points {time.perf_counter() - t0:.1f} s | capacity "
         f"{eng_pq.cfg.capacity} | {eng_pq.cfg}")
+    # one seed, one index: a second build must be equal bit for bit
+    twin = LiraEngine.build(pq_base, BuildConfig(tier="pq", **MAIN_BUILD), device="cuda")
+    params = list(zip(eng_pq.model.named_parameters(), twin.model.named_parameters()))
+    bad = ([n for (n, a), (_, b) in params if not torch.equal(a, b)]
+           + [n for n in eng_pq.store if not torch.equal(eng_pq.store[n], twin.store[n])])
+    if bad or twin.cfg != eng_pq.cfg:
+        raise AssertionError(f"pq: two builds from one seed differ in {bad}")
+    log(f"pq     a second build from the same seed: all {len(params)} probing parameters and "
+        f"{len(eng_pq.store)} store planes ({', '.join(eng_pq.store)}) equal bit for bit")
+    del twin
     _, gti_pq = gt.exact_knn(ds.queries, pq_base, 100, device=dev)
     ids_pq, launches_pq = serve(eng_pq, ds.queries, "pq", counters, len(pq_base), "pq     pq")
     require_launched("pq     pq", launches_pq, ("pq_adc_topk_qbuf", "dedup_topk"))
@@ -1035,7 +1388,6 @@ def main(n_base: int = N_BASE, n_queries: int = N_QUERIES) -> int:
         raise AssertionError(f"pq recall@100 {r_pq:.4f} more than 0.05 below its f32 tier's "
                              f"{r_pf:.4f}")
     cuda_vs_ref(eng_pq, ds.queries[:BATCH], "pq", "pq     pq")
-    del eng_pq
 
     # 6. kernels at the main paths' inputs
     kernels = []
@@ -1167,6 +1519,18 @@ def main(n_base: int = N_BASE, n_queries: int = N_QUERIES) -> int:
     del lut_q, codes_q, full
     (lut, qb, codes, slots, rk), kw = res_in["pq_adc_topk_qbuf"]
     kernels.append(adc_batched_phase(lut, qb, codes, slots, rk, kw["cand_off"], kw["q_off"]))
+    # the captured serve-path operands hold the store's planes: let them go
+    # before the store is mutated and reshaped
+    del (qp, qb, vec, ids, pd, pi, lut, codes, slots, kw, coff, qoff, lut16, qb16, codes16,
+         slots16, kw16, c16, q16, res_in, deep_in, f32_in, inputs, captured)
+    torch.cuda.empty_cache()
+
+    # 13. the serve surface; 14. churn on the main engine
+    t0 = time.perf_counter()
+    serve_surface_phase(eng, deep, eng_pq, ds)
+    del eng_pq, deep
+    log(f"surface phase {time.perf_counter() - t0:.1f} s")
+    churn_phase(eng, ds, counters, smi)
 
     for kern in kernels:
         log(f"kernel {kern['name']}: {kern['ms']:.3f} ms (plain {kern['plain_ms']:.3f} ms, "

@@ -1,26 +1,84 @@
-"""Numpy-only reader of the step directories ``repro/ckpt/checkpoint.py``
-writes: ``<dir>/step_<N:010d>/manifest.json`` plus one
-``leaf_<i:05d>.p<proc>.npy`` per flattened leaf, ``<dir>/LATEST`` naming the
-newest step. The leaf order is JAX's flatten order, which the caller
-reconstructs; this module only checks each leaf against the manifest."""
+"""Numpy-only writer and reader of the step directories
+``repro/ckpt/checkpoint.py`` writes: ``<dir>/step_<N:010d>/manifest.json``
+plus one ``leaf_<i:05d>.p<proc>.npy`` per flattened leaf, ``<dir>/LATEST``
+naming the newest step. The leaf order is JAX's flatten order, which the
+caller reconstructs (``serving.engine._jax_leaf_names``); this module writes
+the leaves it is given in that order and checks each leaf it reads against
+the manifest.
+
+Saving is crash-safe at every point: the leaves and the manifest go to
+``step_N.tmp/`` (each file fsynced), which is renamed to ``step_N`` at once;
+``LATEST`` is replaced through a rename too; the oldest steps beyond
+``keep`` are removed. A crash mid-write leaves only a ``.tmp`` directory,
+which readers ignore and the next save of that step replaces.
+"""
 from __future__ import annotations
 
 import json
+import os
 import pathlib
-from typing import Optional
+import shutil
+from typing import Optional, Sequence
 
 import numpy as np
 
 
-def latest_step(directory) -> Optional[int]:
-    """Newest complete step under ``directory`` (a step directory counts
-    once its manifest exists), or None."""
+class CheckpointManager:
+    """Step-numbered checkpoints under ``directory``, the newest ``keep``
+    retained. One process writes them, so every leaf file carries ``.p0``."""
+
+    def __init__(self, directory, keep: int = 3):
+        self.dir = pathlib.Path(directory)
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self.keep = keep
+
+    def save(self, step: int, leaves: Sequence[np.ndarray], extra: Optional[dict] = None,
+             treedef: str = "") -> pathlib.Path:
+        """Write ``leaves`` (numpy arrays, in flatten order) and ``extra``
+        (JSON) as step ``step``; returns the step directory."""
+        leaves = [np.asarray(leaf) for leaf in leaves]
+        tmp = self.dir / f"step_{step:010d}.tmp"
+        final = self.dir / f"step_{step:010d}"
+        if tmp.exists():
+            shutil.rmtree(tmp)
+        tmp.mkdir(parents=True)
+        meta = {"step": step, "treedef": treedef, "n_leaves": len(leaves),
+                "dtypes": [str(leaf.dtype) for leaf in leaves],
+                "shapes": [list(leaf.shape) for leaf in leaves],
+                "extra": extra or {}}
+        for i, leaf in enumerate(leaves):
+            with open(tmp / f"leaf_{i:05d}.p0.npy", "wb") as f:
+                np.save(f, leaf)
+                f.flush()
+                os.fsync(f.fileno())
+        with open(tmp / "manifest.json", "w") as f:
+            json.dump(meta, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.rename(tmp, final)                      # atomic commit
+        latest = self.dir / "LATEST.tmp"
+        latest.write_text(str(step))
+        os.rename(latest, self.dir / "LATEST")
+        for s in all_steps(self.dir)[:-self.keep]:
+            shutil.rmtree(self.dir / f"step_{s:010d}", ignore_errors=True)
+        return final
+
+
+def all_steps(directory) -> list:
+    """Complete steps under ``directory`` (a step directory counts once its
+    manifest exists), ascending."""
     steps = []
     for p in pathlib.Path(directory).iterdir():
         if p.is_dir() and p.name.startswith("step_") and not p.name.endswith(".tmp"):
             if (p / "manifest.json").exists():
                 steps.append(int(p.name.split("_")[1]))
-    return max(steps) if steps else None
+    return sorted(steps)
+
+
+def latest_step(directory) -> Optional[int]:
+    """Newest complete step under ``directory``, or None."""
+    steps = all_steps(directory)
+    return steps[-1] if steps else None
 
 
 def read_manifest(directory, step: Optional[int] = None):

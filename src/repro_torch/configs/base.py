@@ -1,10 +1,27 @@
 """Config schema of the LIRA system (counterpart of
-``repro/configs/base.py:LiraSystemConfig``; the other architectures' configs
-are not part of the port)."""
+``repro/configs/base.py:LiraSystemConfig`` and ``FrontendConfig``; the other
+architectures' configs are not part of the port)."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Sequence
+
+
+@dataclasses.dataclass(frozen=True)
+class FrontendConfig:
+    """Dynamic-batching front-end knobs (serving/frontend.py). The front-end
+    gathers single-query ``SearchRequest``s into coalesced batches, flushed on
+    whichever trigger fires first: size (``max_batch`` rows, rounded up to the
+    engine's power-of-two batch bucket) or deadline (``max_wait_ms`` since
+    enqueue, tightened per request by ``SearchRequest.deadline_ms``). Beyond
+    ``max_queue`` waiting requests it sheds load: a shed request resolves at
+    once with ``SearchStats.shed=True``. (The reference's retired
+    ``latency_window`` knob is not carried: latency quantiles come from
+    fixed-bucket histograms.)"""
+
+    max_batch: int = 64             # size trigger, in coalesced query rows
+    max_wait_ms: float = 2.0        # deadline trigger for queued requests
+    max_queue: int = 256            # admission-control bound, in requests
 
 
 @dataclasses.dataclass(frozen=True)

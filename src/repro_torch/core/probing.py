@@ -120,3 +120,13 @@ def params_from_jax(tree, device=None) -> ProbingModel:
                 layer.weight.copy_(w.T)
                 layer.bias.copy_(torch.tensor(np.asarray(src["b"], np.float32)))
     return model
+
+
+def params_to_jax(model: ProbingModel) -> dict:
+    """The inverse of ``params_from_jax``: ``{"phi_q", "phi_i", "phi_p":
+    [{"w": [in, out], "b": [out]}, ...]}`` as f32 numpy arrays, the tree a
+    JAX ``LiraEngine`` holds and saves."""
+    return {name: [{"w": layer.weight.detach().T.float().cpu().numpy().copy(),
+                    "b": layer.bias.detach().float().cpu().numpy().copy()}
+                   for layer in getattr(model, name)]
+            for name in ("phi_q", "phi_i", "phi_p")}

@@ -35,25 +35,45 @@ class BuildConfig:
 @dataclasses.dataclass(frozen=True)
 class SearchRequest:
     """One query batch + per-call overrides; ``None`` inherits the engine's
-    config (k/σ/impl from ``cfg.k`` / ``engine.sigma`` / ``cfg.impl``)."""
+    config (k/σ/impl from ``cfg.k`` / ``engine.sigma`` / ``cfg.impl``). The
+    batching hints (``deadline_ms``, ``priority``, ``allow_batching``) matter
+    only through the serving front-end (serving/frontend.py); requests
+    coalesce into one batch only when their resolved (k, σ, tier, impl)
+    agree."""
 
     queries: Any                    # [nq, dim] array-like
     k: Optional[int] = None
     sigma: Optional[float] = None
     tier: Optional[str] = None
     impl: Optional[str] = None
+    # per-request SLO: tightens the flush window to min(max_wait_ms, this)
+    # and arms dead-on-arrival shedding; None = batching window only
+    deadline_ms: Optional[float] = None
+    priority: int = 0               # higher wins under admission pressure
+    allow_batching: bool = True     # False → served solo, bypassing the queue
 
 
 @dataclasses.dataclass(frozen=True)
 class SearchStats:
-    """Per-call serving telemetry (not part of the ranked answer)."""
+    """Per-call serving telemetry (not part of the ranked answer). The
+    queue/batch fields are the front-end's; a direct ``engine.search`` leaves
+    them at their defaults (``batch_size=0``: not front-end batched).
+    ``latency_ms`` and ``stages`` (milliseconds, summing to about
+    ``latency_ms``) are filled only when a Tracer is attached."""
 
     tier: str                       # resolved tier that served the call
     impl: str                       # resolved kernel backend
     k: int
     sigma: float
     bucket: int                     # padded power-of-two batch bucket
+    cache_hit: bool = False         # the serve cache held this call's step
+    queue_ms: float = 0.0           # time queued before the batch launched
+    batch_size: int = 0             # coalesced rows in the batch that served this
+    shed: bool = False              # dropped by admission control, no answer
     dedup_hits: int = 0             # duplicate candidate slots merged away
+    latency_ms: float = 0.0         # end-to-end latency (0.0 when not traced)
+    stages: Optional[dict] = None   # {"prepare": ms, "device": ms, ...}
+    epoch: int = 0                  # store epoch that served the call
 
 
 @dataclasses.dataclass

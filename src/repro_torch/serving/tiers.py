@@ -5,6 +5,8 @@ stores it can serve, and hands the scan its extra operands:
   * ``store_specs(cfg)`` — every store field's shape and dtype;
   * ``build_store(cfg, store_h, generator=)`` — (store dict, cfg), cfg amended
     where the build resolves a knob (PQ's ``pq_m`` default, ``pq_ks`` clamp);
+  * ``encode_rows(cfg, store, x, parts)`` — the per-slot content planes of
+    new rows bound for partitions ``parts`` (insert, repartition);
   * ``check_servable(cfg)`` — raise if the tier cannot serve a store built
     for ``cfg.tier`` (beyond field presence, which the engine checks);
   * ``scan_kwargs(cfg, ctx, fields)`` — extra ``scan.run`` operands; ``{}``
@@ -76,6 +78,15 @@ class F32Tier:
                  "ids": ids, "occupancy": ids >= 0}
         return store, cfg
 
+    def encode_rows(self, cfg, store, x, parts) -> dict:
+        """Content planes of new rows: slot field → [n, ...] tensor, ready to
+        write into the slots the engine picked. ``x`` [n, d] f32 and
+        ``parts`` [n] (each row's destination partition) are tensors on the
+        store's device; ``ids`` and ``occupancy`` are the engine's
+        bookkeeping, so a tier returns only its content planes."""
+        del cfg, parts
+        return {"vectors": x.to(store["vectors"].dtype)}
+
     def check_servable(self, cfg) -> None:
         """Any store carries the exact f32 operands."""
         del cfg
@@ -117,6 +128,24 @@ class PqTier(F32Tier):
             store["cterm"] = qs.cterm
         # ks may have been clamped for a small store
         return store, dataclasses.replace(cfg, pq_m=m, pq_ks=qs.ks)
+
+    def encode_rows(self, cfg, store, x, parts) -> dict:
+        from repro_torch.core import pq as pqmod
+
+        rows = super().encode_rows(cfg, store, x, parts)
+        cbs = store["codebooks"]
+        book = pqmod.PQCodebook(codebooks=cbs, m=cbs.shape[0], ks=cbs.shape[1])
+        x = x.float()
+        if self.residual:
+            # residual codes encode x − the DESTINATION partition's centroid;
+            # at a row's own partition this repeats the build's arithmetic
+            cents = store["centroids"][parts.long()].float()
+            x = x - cents
+        codes = pqmod.encode(book, x)
+        rows["codes"] = codes.to(store["codes"].dtype)
+        if self.residual:
+            rows["cterm"] = pqmod.residual_cross_terms(book, cents, codes)
+        return rows
 
     def check_servable(self, cfg) -> None:
         # residual codes encode x − centroid: a plain shared-LUT scan of them

@@ -34,7 +34,9 @@ def test_no_module_imports_jax_or_the_jax_package():
 def test_importing_the_port_leaves_jax_unloaded():
     code = ("import sys, repro_torch.serving.engine, repro_torch.kernels.ops, "
             "repro_torch.configs.lira_ann, repro_torch.configs.lira_ann_q, "
-            "repro_torch.serving.quantized, repro_torch.core.pq, repro_torch.data.synthetic; "
+            "repro_torch.serving.quantized, repro_torch.core.pq, repro_torch.data.synthetic, "
+            "repro_torch.serving.frontend, repro_torch.serving.mutable, repro_torch.obs, "
+            "repro_torch.utils.clock, repro_torch.ckpt.checkpoint; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(PKG.parent))
@@ -52,6 +54,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         LiraEngine.build(x, BuildConfig(n_partitions=4, k=5))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         LiraEngine.load_jax("/nonexistent")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LiraEngine.load("/nonexistent")
     assert resolve_device("cpu") == torch.device("cpu")
 
 
