@@ -116,8 +116,38 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                ground truth over the live rows (f32 ≥ 0.9) beside a fresh
                build of the live rows; wall seconds of each operation, peak
                device memory, the card's name and power limit.
-Phases 7-12 zero their kernel's launch counter just before the path and read
-it just after. Every matmul runs in full f32 (TF32 off for matmul and cuDNN),
+ 15. mesh    — run after 13, before 14: the main engine's 10 batches of
+               1,000 served over a mesh of data 1 x model 4, every rank on
+               the card (four blocks of 256 partitions), against the
+               unsharded search: f32 equal bit for bit, residual_pq at
+               rerank 4 under the comparison rule with the rows equal bit
+               for bit counted, nprobe_eff and overflow equal, dedup_hits at
+               most the unsharded count; each batch launches the scan once a
+               rank and dedup_topk once a rank plus once to merge across
+               ranks; the three serve kernels held against their plain
+               versions at the meshed shapes (a block of 256 partitions, a
+               cross-rank pool of 4 x 100) and timed beside their bounds;
+               impl="cuda" against "ref" on the meshed step; then data 2 x
+               model 2 (each half of a batch equal bit for bit to an
+               unsharded search of that half alone); with two cards or more
+               also one rank a card; the median batch meshed and unsharded.
+ 16. cluster — after churn, the main engine freed: a LiraCluster of 4 hash
+               shards x 2 replicas over the 1M base, each shard a lira-ann-q
+               engine over its ~250,000 rows trained on as many rows as the
+               single engine; per path recall@100 against phase 4's ground
+               truth (f32 >= 0.9) and each batch equal bit for bit to
+               dedup_topk_np of the shard engines' own searches; a replica
+               killed with a batch in flight and one stalled (failed by tick
+               on a FakeClock) leave every answer's bits; a whole dead group
+               raises; a full fan-out exactness gate (4 shards over 100,000
+               points, B = 64, sigma -1, no probe dropped) against one
+               engine over the union and exact ground truth under the
+               comparison rule; a front-end of 1,000 single-query requests
+               against one solo cluster search; build seconds a shard,
+               median batch, peak device memory; and the f32 recall of the
+               same shards at the single engine's train_frac.
+Phases 7-12 and 15-16 zero the launch counters just before each path and
+read them just after. Every matmul runs in full f32 (TF32 off for matmul and cuDNN),
 so the plain versions are exact oracles.
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -1247,6 +1277,435 @@ def churn_phase(eng, ds, counters, smi) -> None:
           f"{smi}; phase {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------- mesh and cluster
+
+SERVE_KERNELS = ("l2_topk_qbuf", "dedup_topk", "pq_adc_topk_qbuf")
+
+
+class Calls:
+    """While active, records every call of the serve kernels' dispatch
+    wrappers (``kops.<name>``) as (name, args, kw), and passes it on."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops as kops
+
+        self.calls, self.orig = [], {n: getattr(kops, n) for n in SERVE_KERNELS}
+        for name, fn in self.orig.items():
+            setattr(kops, name, self._wrap(name, fn))
+        return self.calls
+
+    def _wrap(self, name, fn):
+        def wrapped(*args, **kw):
+            self.calls.append((name, args, kw))
+            return fn(*args, **kw)
+        return wrapped
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops as kops
+
+        for name, fn in self.orig.items():
+            setattr(kops, name, fn)
+
+
+def hold_kernels(what, calls) -> dict:
+    """Each serve kernel against its plain version on the inputs one batch
+    gave it, once per distinct input shape, timed beside its bound. Returns
+    {kernel: [{shape, max_abs_err, ms, plain_ms, bound_ms, bound_by}, ...]}."""
+    from repro_torch.kernels import dedup_topk as dd_mod, l2_topk as l2_mod
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import pq_adc as adc_mod
+
+    out, seen = {}, set()
+    for name, args, kw in calls:
+        kw = {n: v for n, v in kw.items() if n != "impl"}
+        shape = tuple(tuple(a.shape) for a in args if hasattr(a, "shape"))
+        if (name, shape) in seen:
+            continue
+        seen.add((name, shape))
+        if name == "l2_topk_qbuf":
+            err = compare_l2(f"{what} l2_topk_qbuf {shape}", *args)
+            kernel, bound = (lambda: l2_mod.l2_topk_qbuf(*args)), l2_bound(*args)
+        elif name == "dedup_topk":
+            err = compare_dedup(f"{what} dedup_topk {shape}", *args)
+            pd, _, k = args
+            kernel = lambda: dd_mod.dedup_topk(*args)  # noqa: E731
+            bound = (pd.numel() * 8 + pd.shape[0] * k * 8, 0.0, PEAK_OPS["float32"])
+        else:
+            err = compare_adc(f"{what} pq_adc_topk_qbuf {shape}", *args, kw["cand_off"],
+                              kw["q_off"])
+            kernel = lambda: adc_mod.pq_adc_topk_qbuf(*args, **kw)  # noqa: E731
+            bound = adc_bound(*args, kw["cand_off"], kw["q_off"])
+        ms = time_ms(kernel, 10)
+        plain_ms = time_ms(lambda: getattr(kops, name)(*args, **kw, impl="ref"), 2, 1)
+        bound_ms, bound_by = bound_entry(*bound)
+        out.setdefault(name, []).append({"shape": [list(s) for s in shape], "max_abs_err": err,
+                                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                         "bound_by": bound_by})
+        log(f"{what} kernel {name} at {shape}: equal to its plain version (max abs err "
+            f"{err:.3g}); {ms:.3f} ms (plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms by "
+            f"{bound_by})")
+    return out
+
+
+def serve_batches(engine, queries, tier, **kw):
+    """``len(queries) / BATCH`` batches through ``search``; returns the
+    results and each batch's host seconds."""
+    out, secs = [], []
+    for s in range(0, len(queries), BATCH):
+        t0 = time.perf_counter()
+        out.append(engine.search(queries[s:s + BATCH], tier=tier, **kw))
+        secs.append(time.perf_counter() - t0)
+    return out, secs
+
+
+def zeroed(counters):
+    for mod in counters.values():
+        mod.launches = 0
+
+
+def read(counters):
+    return {name: mod.launches for name, mod in counters.items()}
+
+
+def mesh_phase(eng, ds, counters, smi) -> dict:
+    """15. The main engine's 10 batches of 1,000 through a mesh of (data 1,
+    model 4), every rank on the card, held against the unsharded search
+    (f32 bit for bit; residual_pq at rerank 4 under the comparison rule,
+    rows equal bit for bit counted; dedup_hits at most the unsharded count),
+    with each rank's kernels launched and the three kernels held against
+    their plain versions at the meshed shapes; impl="cuda" against "ref" on
+    the meshed step; then (data 2, model 2), each half of a batch equal bit
+    for bit to an unsharded search of that half; with two cards or more, a
+    mesh of one rank a card under the same equalities. Returns the kernels'
+    entries at the meshed shapes."""
+    import numpy as np
+    import torch
+
+    from repro_torch import testing as rt
+    from repro_torch.launch.mesh import make_test_mesh
+
+    t_phase = time.perf_counter()
+    q_all = ds.queries
+    atol = rt.l2_atol(q_all, eng.store["vectors"], eng.store["ids"])
+    solo = {t: serve_batches(eng, q_all, t) for t in ("f32", "residual_pq")}
+    n_cards = torch.cuda.device_count()
+    meshes = [("model 4, every rank on the card", make_test_mesh(1, 4, device="cuda"))]
+    if n_cards >= 2:
+        n = min(4, n_cards)
+        meshes.append((f"model {n}, one rank a card",
+                       make_test_mesh(1, n, devices=[f"cuda:{i}" for i in range(n)])))
+        log(f"mesh   {n_cards} cards: the one-rank-a-card mesh runs too")
+    else:
+        log(f"mesh   {n_cards} card: every rank shares it; the one-rank-a-card mesh needs two "
+            f"cards or more and did not run")
+    entries = {}
+    for what, mesh in meshes:
+        m_eng = dataclasses.replace(eng, mesh=mesh)
+        model_n = mesh.shape["model"]
+        for tier in ("f32", "residual_pq"):
+            zeroed(counters)
+            got, secs = serve_batches(m_eng, q_all, tier)
+            launches = read(counters)
+            scan = "l2_topk_qbuf" if tier == "f32" else "pq_adc_topk_qbuf"
+            n_b = len(got)
+            if launches[scan] != model_n * n_b or launches["dedup_topk"] != (model_n + 1) * n_b:
+                raise AssertionError(f"mesh {what} {tier}: launches {launches}")
+            ref, ref_secs = solo[tier]
+            n_bits = n_rows = 0
+            err = 0.0
+            hits = [0, 0]
+            for a, b in zip(got, ref):
+                if not (np.array_equal(a.nprobe_eff, b.nprobe_eff) and a.overflow == b.overflow):
+                    raise AssertionError(f"mesh {what} {tier}: nprobe_eff / overflow differ")
+                if a.stats.dedup_hits > b.stats.dedup_hits:
+                    raise AssertionError(f"mesh {what} {tier}: dedup_hits above the unsharded")
+                hits[0] += a.stats.dedup_hits
+                hits[1] += b.stats.dedup_hits
+                err = max(err, rt.assert_topk_match(a.dists, a.ids, b.dists, b.ids, atol,
+                                                    what=f"mesh {what} {tier}"))
+                bits = np.all(a.dists == b.dists, 1) & np.all(a.ids == b.ids, 1)
+                n_bits += int(bits.sum())
+                n_rows += len(bits)
+            if tier == "f32" and n_bits != n_rows:
+                raise AssertionError(f"mesh {what} f32: {n_rows - n_bits} rows not bit-equal")
+            log(f"mesh   {what}, {tier}: {n_rows} rows, {n_bits} equal bit for bit to the "
+                f"unsharded search, the rest within the rule (max abs err {err:.3g}, atol "
+                f"{atol:.3g}); overflow equal; dedup_hits {hits[0]} sharded, {hits[1]} "
+                f"unsharded; launches over {n_b} batches {launches}; median batch "
+                f"{1e3 * float(np.median(secs)):.2f} ms meshed, "
+                f"{1e3 * float(np.median(ref_secs)):.2f} ms unsharded; {smi}")
+            if not entries:
+                with Calls() as calls:
+                    m_eng.search(q_all[:BATCH], tier="f32")
+                    m_eng.search(q_all[:BATCH], tier="residual_pq")
+                entries = hold_kernels("mesh  ", calls)
+                del calls
+        for tier in ("f32", "residual_pq"):
+            cuda_vs_ref(m_eng, q_all[:BATCH], tier, f"mesh   {what}, {tier}")
+    # data 2 x model 2: each batch row serves its half on its own
+    m_eng = dataclasses.replace(eng, mesh=make_test_mesh(2, 2, device="cuda"))
+    zeroed(counters)
+    got, secs = serve_batches(m_eng, q_all, "f32")
+    launches = read(counters)
+    if launches["l2_topk_qbuf"] != 4 * len(got) or launches["dedup_topk"] != 6 * len(got):
+        raise AssertionError(f"mesh data 2 x model 2: launches {launches}")
+    half = m_eng._batch_bucket(BATCH) // 2
+    for j, r in enumerate(got):
+        qb = q_all[j * BATCH:(j + 1) * BATCH]
+        for rows in (slice(0, half), slice(half, BATCH)):
+            alone = eng.search(qb[rows], tier="f32")
+            if not (np.array_equal(r.dists[rows], alone.dists)
+                    and np.array_equal(r.ids[rows], alone.ids)):
+                raise AssertionError(f"mesh data 2 x model 2: batch {j} rows {rows} differ")
+    log(f"mesh   data 2 x model 2, f32: each half of each of the {len(got)} batches ({half} and "
+        f"{BATCH - half} rows) equal bit for bit to an unsharded search of that half alone; "
+        f"launches {launches}; median batch {1e3 * float(np.median(secs)):.2f} ms")
+    log(f"mesh   phase {time.perf_counter() - t_phase:.1f} s")
+    return entries
+
+
+def cluster_phase(ds, counters, gti, recall, smi) -> dict:
+    """16. A LiraCluster of 4 hash shards x 2 replicas over the 1M base, each
+    shard a full lira-ann-q engine on the card: per tier its 10 batches,
+    recall@100 against phase 4's ground truth (f32 >= 0.9), each batch equal
+    bit for bit to dedup_topk_np of the shard engines' own searches; a
+    replica killed mid-stream and one stalled (FakeClock, tick) leave every
+    answer's bits; a whole dead group raises; the full fan-out exactness gate
+    over 100,000 points against a union engine and exact ground truth; a
+    front-end of 1,000 single-query requests. Returns the kernels' entries
+    at one shard's shapes."""
+    import numpy as np
+    import torch
+
+    from repro_torch import testing as rt
+    from repro_torch.configs.base import FrontendConfig
+    from repro_torch.core import ground_truth as gt
+    from repro_torch.core.metrics import recall_at_k
+    from repro_torch.kernels.ref import dedup_topk_np
+    from repro_torch.obs import Tracer
+    from repro_torch.serving.api import BuildConfig, SearchRequest
+    from repro_torch.serving.cluster import ClusterConfig, LiraCluster
+    from repro_torch.serving.engine import LiraEngine
+    from repro_torch.utils.clock import FakeClock
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30
+    q_all = ds.queries
+    build_s = []
+    plain_build = LiraEngine.build.__func__
+
+    def timed_build(cls, *args, **kw):
+        t0 = time.perf_counter()
+        out = plain_build(cls, *args, **kw)
+        torch.cuda.synchronize()
+        build_s.append(time.perf_counter() - t0)
+        return out
+
+    ccfg = ClusterConfig(n_shards=4, n_replicas=2, seed=0)
+    # a shard's probing labels are the k nearest neighbours within its
+    # training subset: at the single engine's train_frac a shard of a quarter
+    # of the rows trains on a quarter as many, and its labels reach about
+    # four times as far. Each shard trains on as many rows as the single
+    # engine did (the last step logs the recall at the single engine's
+    # fraction)
+    shard_build = dict(MAIN_BUILD, train_frac=ccfg.n_shards * MAIN_BUILD["train_frac"])
+    LiraEngine.build = classmethod(timed_build)
+    try:
+        cl = LiraCluster.build(ds.base, BuildConfig(tier="residual_pq", **shard_build), ccfg,
+                               device="cuda")
+    finally:
+        LiraEngine.build = classmethod(plain_build)
+    sizes = [len(g.row_ids) for g in cl.groups]
+    stores = sum(t.numel() * t.element_size() for g in cl.groups
+                 for t in g.engine.store.values()) / 2**30
+    log(f"cluster built 4 hash shards x 2 replicas over {len(ds.base)} points (train_frac "
+        f"{shard_build['train_frac']:g}): rows {sizes}, capacity "
+        f"{[g.engine.cfg.capacity for g in cl.groups]}, build s "
+        + ", ".join(f"{s:.1f}" for s in build_s)
+        + f"; stores {stores:.3f} GiB on the card, {held:.3f} GiB held before the build")
+    atol = max(rt.l2_atol(q_all, g.engine.store["vectors"], g.engine.store["ids"])
+               for g in cl.groups)
+    answers, rec = {}, {}
+    for tier in ("f32", "residual_pq"):
+        zeroed(counters)
+        res, secs = serve_batches(cl, q_all, tier)
+        launches = read(counters)
+        scan = "l2_topk_qbuf" if tier == "f32" else "pq_adc_topk_qbuf"
+        if launches[scan] != 4 * len(res) or launches["dedup_topk"] != 4 * len(res):
+            raise AssertionError(f"cluster {tier}: launches {launches}")
+        ids = np.concatenate([r.ids for r in res])
+        rec[tier] = recall_at_k(ids, gti, 100)
+        answers[tier] = res
+        for j, r in enumerate(res):
+            qb = q_all[j * BATCH:(j + 1) * BATCH]
+            per = [g.engine.search(qb, tier=tier) for g in cl.groups]
+            pool_i = np.concatenate([np.where(p.ids >= 0, g.row_ids[np.clip(p.ids, 0, None)], -1)
+                                     for p, g in zip(per, cl.groups)], 1)
+            d, i = dedup_topk_np(np.concatenate([p.dists for p in per], 1), pool_i, 100)
+            if not (np.array_equal(r.dists, d) and np.array_equal(r.ids, i)):
+                raise AssertionError(f"cluster {tier}: batch {j} differs from the host merge "
+                                     f"of its shards")
+        log(f"cluster {tier}: recall@100 {rec[tier]:.4f} against exact ground truth (one "
+            f"engine over the 1M: {recall[tier]:.4f}); every batch equal bit for bit to "
+            f"dedup_topk_np of the 4 shard engines' own searches; launches over {len(res)} "
+            f"batches {launches}; median batch {1e3 * float(np.median(secs)):.2f} ms; routes of "
+            f"the last {res[-1].stats.routes}; {smi}")
+    # one batch a path with a Tracer on the cluster: the fan-out's shard
+    # spans (each an engine search, ended after its synchronize) and the
+    # host merge
+    for tier in ("f32", "residual_pq"):
+        cl.tracer = Tracer()
+        traced = cl.search(q_all[:BATCH], tier=tier)
+        spans, cl.tracer = cl.tracer, None
+        if not same_bits(traced, answers[tier][0]):
+            raise AssertionError(f"cluster {tier}: the traced batch differs")
+        log(f"cluster {tier} one batch traced, equal bit for bit to the untraced one: "
+            f"cluster.search {spans.finished('cluster.search')[0].duration_ms:.2f} ms = shards "
+            + ", ".join(f"{sp.duration_ms:.2f}" for sp in spans.finished("cluster.shard"))
+            + f" + cluster.merge {spans.finished('cluster.merge')[0].duration_ms:.2f} ms "
+              f"(host, dedup_topk_np of [{BATCH}, {4 * 100}])")
+    if len(ds.base) == N_BASE and rec["f32"] < 0.9:
+        raise AssertionError(f"cluster f32 recall@100 {rec['f32']:.4f} < 0.9")
+    with Calls() as calls:
+        cl.groups[0].engine.search(q_all[:BATCH], tier="f32")
+        cl.groups[0].engine.search(q_all[:BATCH], tier="residual_pq")
+    entries = hold_kernels("cluster", calls)
+    del calls
+
+    # faults on a fresh control plane over the same engines, on a FakeClock,
+    # per path. The kill is armed at batch 3 and fires at the next batch
+    # routed to the replica (a power-of-two choice): the stream runs on,
+    # batches again from the first, until it has
+    for tier in ("f32", "residual_pq"):
+        clock = FakeClock()
+        fcl = LiraCluster([g.engine for g in cl.groups], [g.row_ids for g in cl.groups],
+                          dataclasses.replace(ccfg, heartbeat_timeout_s=5.0), clock=clock)
+        failovers = j = 0
+        while j < 10 or (fcl.groups[0].router.replicas[0].healthy and j < 40):
+            want = answers[tier][j % 10]
+            if j == 3:
+                fcl.fail_replica(0, 0, inflight=True)
+            if j == 6:
+                fcl.stall_replica(2, 1)
+                clock.advance(10.0)
+                if fcl.tick() != [(2, 1, 0)]:
+                    raise AssertionError("cluster: the stalled replica was not failed by tick")
+            r = fcl.search(q_all[(j % 10) * BATCH:(j % 10 + 1) * BATCH], tier=tier)
+            failovers += r.stats.failovers
+            if not (np.array_equal(r.dists, want.dists) and np.array_equal(r.ids, want.ids)):
+                raise AssertionError(f"cluster faults {tier}: batch {j} differs")
+            if r.stats.failovers:
+                fired = j
+            if (j >= 6 and r.stats.routes[2][1] != 0) or (failovers and r.stats.routes[0][1] != 1):
+                raise AssertionError(f"cluster faults {tier}: batch {j} routed to a dead "
+                                     f"replica: {r.stats.routes}")
+            j += 1
+        if failovers != 1 or fcl.groups[0].router.replicas[0].healthy:
+            raise AssertionError(f"cluster faults {tier}: {failovers} failovers")
+        fcl.fail_replica(3, 0)
+        fcl.fail_replica(3, 1)
+        try:
+            fcl.search(q_all[:BATCH], tier=tier)
+        except RuntimeError as exc:
+            if "no healthy replicas" not in str(exc):
+                raise
+        else:
+            raise AssertionError("cluster: a whole dead group served")
+        served = {f"s{r['shard']}r{r['replica']}": r["served"] for r in fcl.replica_table()}
+        log(f"cluster faults {tier}: replica (0, 0) armed to die at batch 3, killed with batch "
+            f"{fired} in flight ({failovers} failover, replayed on replica 1), replica (2, 1) "
+            f"stalled at batch 6 and failed by tick; all {j} batches equal bit for bit to the "
+            f"healthy run, each routed around the dead; a whole dead group raises; served "
+            f"{served}")
+
+    # exactness gate: full fan-out over 100,000 points, every partition
+    # scanned (sigma -1, nprobe_max = B), no probe dropped (q_cap = q_row)
+    base = ds.base[:100_000]
+    q = q_all[:BATCH]
+    exact = BuildConfig(tier="f32", n_partitions=64, k=100, nprobe_max=64, eta=0.03, sigma=-1.0,
+                        train_frac=0.1, q_cap_factor=1.0)
+    xcl = LiraCluster.build(base, exact, dataclasses.replace(ccfg, n_replicas=1),
+                            device="cuda")
+    union = LiraEngine.build(base, exact, device="cuda")
+    rc, ru = xcl.search(q), union.search(q)
+    gtd, gt_i = gt.exact_knn(q, base, 100, device="cuda")
+    if rc.overflow or ru.overflow:
+        raise AssertionError(f"cluster exactness: overflow {rc.overflow} / {ru.overflow}")
+    xatol = rt.l2_atol(q, torch.as_tensor(base), torch.zeros(len(base), dtype=torch.int32))
+    err_u = rt.assert_topk_match(rc.dists, rc.ids, ru.dists, ru.ids, xatol,
+                                 what="cluster vs union engine")
+    err_g = rt.assert_topk_match(rc.dists, rc.ids, gtd, gt_i, xatol,
+                                 what="cluster vs exact ground truth")
+    bits = int((np.all(rc.dists == ru.dists, 1) & np.all(rc.ids == ru.ids, 1)).sum())
+    x_rec = recall_at_k(rc.ids, gt_i, 100)
+    log(f"cluster exactness gate (4 shards over {len(base)} points, B 64, sigma -1, q_cap = "
+        f"q_row, f32; {len(q)} queries): against one engine over the union {bits} rows equal "
+        f"bit for bit, the rest within the rule (max abs err {err_u:.3g}, atol {xatol:.3g}); "
+        f"against exact ground truth within the rule (max abs err {err_g:.3g}), recall@100 "
+        f"{x_rec:.4f}")
+    del xcl, union
+
+    # a front-end over the f32 cluster: q_cap = the bucket's rows
+    # (q_cap_factor B / nprobe_max) in every shard, so nothing overflows
+    fe_cl = LiraCluster([dataclasses.replace(g.engine, cfg=dataclasses.replace(
+        g.engine.cfg, q_cap_factor=g.engine.cfg.n_partitions / g.engine.cfg.nprobe_max))
+        for g in cl.groups], [g.row_ids for g in cl.groups], ccfg)
+    q = q_all[2 * BATCH:3 * BATCH]
+    solo = fe_cl.search(q, tier="f32")
+    fe = fe_cl.attach_frontend(FrontendConfig(max_batch=1000), clock=time.monotonic)
+    pend = []
+    t0 = time.perf_counter()
+    for row in q:
+        pend.append(fe.submit(SearchRequest(queries=row, tier="f32")))
+        fe.poll()
+    fe.drain()
+    wall = time.perf_counter() - t0
+    st = fe.stats()
+    fe_cl.frontend = None
+    res = [p.result() for p in pend]
+    if solo.overflow or any(r.stats.shed or r.overflow for r in res) or st.served != len(q):
+        raise AssertionError(f"cluster front-end: {st}, solo overflow {solo.overflow}")
+    n_bits = n_probe = 0
+    err = 0.0
+    for i, r in enumerate(res):
+        if not np.array_equal(r.nprobe_eff, solo.nprobe_eff[i:i + 1]):
+            n_probe += 1    # the probing MLP's bits moved a sigma near-tie
+            continue
+        err = max(err, rt.assert_topk_match(r.dists, r.ids, solo.dists[i:i + 1],
+                                            solo.ids[i:i + 1], atol,
+                                            what=f"cluster front-end row {i} vs solo"))
+        n_bits += bool(np.array_equal(r.dists, solo.dists[i:i + 1])
+                       and np.array_equal(r.ids, solo.ids[i:i + 1]))
+    if n_probe > len(q) // 100:
+        raise AssertionError(f"cluster front-end: {n_probe} rows probed other partitions")
+    log(f"cluster front-end f32 (time.monotonic, max_batch {fe.max_batch}): {st.served} "
+        f"single-query requests in {st.batches} batches, mean {st.mean_batch:.1f} rows; p50 "
+        f"{st.p50_ms:.3f} ms, p99 {st.p99_ms:.3f} ms, {st.qps:.1f} QPS ({len(q) / wall:.1f} over "
+        f"the submit loop's wall {wall:.3f} s); against one solo cluster search: {n_bits} rows "
+        f"equal bit for bit, {len(q) - n_bits - n_probe} within the rule (max abs err "
+        f"{err:.3g}), {n_probe} with another nprobe_eff")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del cl, fcl, fe_cl
+    torch.cuda.empty_cache()
+
+    # the same shards at the single engine's train_frac, f32 only
+    narrow = LiraCluster.build(ds.base, BuildConfig(tier="f32", **MAIN_BUILD), ccfg,
+                               device="cuda")
+    res, _ = serve_batches(narrow, q_all, "f32")
+    r_narrow = recall_at_k(np.concatenate([r.ids for r in res]), gti, 100)
+    log(f"cluster at the single engine's train_frac {MAIN_BUILD['train_frac']:g}: f32 "
+        f"recall@100 {r_narrow:.4f} (at {shard_build['train_frac']:g}: {rec['f32']:.4f}), "
+        f"probes a query over the 4 shards "
+        f"{float(np.mean([r.nprobe_eff.mean() for r in res])):.2f}, overflow "
+        f"{sum(r.overflow for r in res)} (at {shard_build['train_frac']:g}: "
+        f"{sum(r.overflow for r in answers['f32'])})")
+    del narrow
+    log(f"cluster peak device memory {peak:.2f} GiB; {smi}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return entries
+
+
 # ---------------------------------------------------------------- phases
 
 def main(n_base: int = N_BASE, n_queries: int = N_QUERIES) -> int:
@@ -1525,12 +1984,21 @@ def main(n_base: int = N_BASE, n_queries: int = N_QUERIES) -> int:
          slots16, kw16, c16, q16, res_in, deep_in, f32_in, inputs, captured)
     torch.cuda.empty_cache()
 
-    # 13. the serve surface; 14. churn on the main engine
+    # 13. the serve surface; 15. the mesh; 14. churn on the main engine;
+    # 16. the cluster, after the main engine is freed
     t0 = time.perf_counter()
     serve_surface_phase(eng, deep, eng_pq, ds)
-    del eng_pq, deep
+    del eng_pq, deep, engine    # engine: phase 4's loop variable, the last path's (deep)
     log(f"surface phase {time.perf_counter() - t0:.1f} s")
+    meshed = mesh_phase(eng, ds, counters, smi)
     churn_phase(eng, ds, counters, smi)
+    del eng
+    torch.cuda.empty_cache()
+    clustered = cluster_phase(ds, counters, gti, recall, smi)
+    for kern in kernels:
+        for path, found in (("mesh", meshed), ("cluster", clustered)):
+            if kern["name"] in found:
+                kern["shapes"][path] = found[kern["name"]]
 
     for kern in kernels:
         log(f"kernel {kern['name']}: {kern['ms']:.3f} ms (plain {kern['plain_ms']:.3f} ms, "

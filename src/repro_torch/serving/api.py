@@ -74,6 +74,16 @@ class SearchStats:
     latency_ms: float = 0.0         # end-to-end latency (0.0 when not traced)
     stages: Optional[dict] = None   # {"prepare": ms, "device": ms, ...}
     epoch: int = 0                  # store epoch that served the call
+    # cluster serving (serving/cluster.py): a merged cluster answer leaves
+    # shard and replica None and carries one (shard, replica, hedged,
+    # failovers) tuple a shard in ``routes``; ``failovers`` counts in-flight
+    # batches replayed off dead replicas while serving this call (nonzero:
+    # the answer survived a failure, nothing was lost)
+    shard: Optional[int] = None     # shard that served (None: an engine, or merged)
+    replica: Optional[int] = None   # replica that won within the shard group
+    hedged: bool = False            # a hedge request was issued for this call
+    failovers: int = 0              # in-flight replays absorbed by this call
+    routes: Optional[tuple] = None  # merged answers: per-shard route tuples
 
 
 @dataclasses.dataclass

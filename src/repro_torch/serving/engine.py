@@ -1,18 +1,22 @@
-"""LIRA serving engine on one device (counterpart of
-``repro/serving/engine.py``; the model-axis collectives are not ported yet).
+"""LIRA serving engine (counterpart of ``repro/serving/engine.py``).
 
 serve step (each stage a ``torch.profiler.record_function`` range named in
-``obs.profiling.RANGES``):
+``obs.profiling.RANGES``), run by every rank of the engine's mesh
+(``launch/mesh.py``: one process, ranks over ``("data", "model")``, each on a
+device) for its rows of the batch and its block of partitions:
   1. probing: query→centroid distances, the probing MLP, σ-masked
      top-``nprobe_max`` partitions (query-adaptive nprobe, paper §3.4);
   2. dispatch: a sort-based scatter of (query, partition) probes into the
-     ``qbuf [B, q_cap]`` buffer; probes beyond a partition's q_cap are counted
-     as overflow, batch-padding rows never probe;
+     ``qbuf [b_loc, q_cap]`` buffer of the rank's partitions; probes beyond a
+     partition's q_cap are counted as overflow, batch-padding rows never
+     probe;
   3. scan (serving/scan.py): ``kernels.l2_topk_qbuf`` per partition for the
      f32 tier; for the quantized tiers an ADC shortlist through
      ``kernels.pq_adc_topk_qbuf``, then an exact f32 rerank;
   4. merge: scatter back per query, then the replica-aware
-     ``kernels.dedup_topk`` over each query's [B·k] pool.
+     ``kernels.dedup_topk`` over each query's [b_loc·k] pool; over more than
+     one model rank, the ranks' lists gathered in rank order and merged by
+     ``dedup_topk`` again (the reference's ``all_gather`` and ``psum``).
 
 The engine around it: a serve cache keyed like the reference's jit cache,
 spans and metrics (``obs/``), the single-query entry point and the batching
@@ -22,6 +26,7 @@ reference's checkpoint layout.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Optional
 
@@ -38,6 +43,7 @@ from repro_torch.core.partitions import build_store
 from repro_torch.core.redundancy import plan_redundancy, replica_rows
 from repro_torch.core.train_probing import train_probing_model
 from repro_torch.kernels import ops as kops
+from repro_torch.launch.mesh import Mesh, make_test_mesh
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.serving import api, mutable, scan, tiers
@@ -60,32 +66,88 @@ def _dup_count(ids_pool: torch.Tensor) -> torch.Tensor:
     return (valid.sum(1) - (valid & first).sum(1)).sum()
 
 
+def batch_mesh_info(mesh: Mesh):
+    """(batch_axes, bprod) for the query-batch axes of a mesh: the one
+    source for how the serve step and the batch buckets split queries."""
+    batch_axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    bprod = int(np.prod([mesh.shape[a] for a in batch_axes])) if batch_axes else 1
+    return batch_axes, bprod
+
+
+def place_ranks(model, store: dict, cfg: LiraSystemConfig, mesh: Mesh) -> list:
+    """Each rank's operands on its device: ``ranks[i][j]`` is ``(device,
+    model, block)`` for batch row ``i`` and model index ``j``. A block holds
+    every store field, those the tier splits over ``"model"``
+    (``store_pspecs``) cut to the rank's partitions ``[j·b_loc, (j+1)·b_loc)``
+    along dim 0, the others whole. On the store's device a block is views of
+    the store's planes and the model is the model itself; elsewhere both are
+    copied, once a device."""
+    if "model" in mesh.axis_names and mesh.axis_names[-1] != "model":
+        raise ValueError(f"the model axis must be the mesh's last; axes {mesh.axis_names}")
+    model_n = mesh.shape.get("model", 1)
+    _, bprod = batch_mesh_info(mesh)
+    b_loc = cfg.n_partitions // model_n
+    pspecs = tiers.resolve(cfg.tier).store_pspecs(cfg)
+    models, blocks, ranks = {}, {}, []
+    for i in range(bprod):
+        row = []
+        for j in range(model_n):
+            dev = mesh.devices[i * model_n + j]
+            if dev not in models:
+                on_dev = next(model.parameters()).device == dev
+                models[dev] = model if on_dev else copy.deepcopy(model).to(dev)
+            if (dev, j) not in blocks:
+                blocks[dev, j] = {
+                    name: (plane[j * b_loc:(j + 1) * b_loc] if pspecs.get(name) == "model"
+                           else plane).to(dev)
+                    for name, plane in store.items()}
+            row.append((dev, models[dev], blocks[dev, j]))
+        ranks.append(row)
+    return ranks
+
+
 def make_serve_step(cfg: LiraSystemConfig, n_queries: int, *, sigma: float, impl: str,
-                    k: int, tier=None):
-    """The serve step for one batch size, tier (default ``cfg.tier``) and
-    kernel backend (``"ref"`` or ``"cuda"``). Returns ``serve_step(model,
-    store, queries [n, d], valid [n] bool) → (dists [n, k], ids [n, k],
-    nprobe_eff [n] f32, overflow [], dedup_hits [])``, all tensors on the
-    store's device."""
-    q_row = n_queries
-    b_loc = cfg.n_partitions
+                    k: int, mesh: Mesh, tier=None):
+    """The serve step for one batch size, kernel backend (``"ref"`` or
+    ``"cuda"``), mesh and tier (default ``cfg.tier``). Returns
+    ``serve_step(ranks, queries [n, d], valid [n] bool) → (dists [n, k],
+    ids [n, k], nprobe_eff [n] f32, overflow [], dedup_hits [])`` on the
+    first rank's device; ``ranks`` is ``place_ranks``' placement of the
+    model and store over ``mesh``.
+
+    The batch splits into ``bprod`` rows of ``q_row`` queries (the batch
+    axes) and the partitions into ``model_n`` blocks of ``b_loc``; each rank
+    probes, dispatches, scans and merges its block for its rows. Where
+    ``model_n > 1`` a batch row's local top-k lists are gathered in rank
+    order on its first rank's device, ``[q_row, model_n·k]``, and merged
+    again by ``dedup_topk`` (replicas of one id can sit in two blocks):
+    ``overflow`` is the sum over ranks, and ``dedup_hits`` the sum of the
+    ranks' counts plus the gathered pool's, as the reference counts it. That
+    is a lower bound on the one-rank count: a duplicate pair one of whose
+    copies missed its block's top-k is never seen. The answers do not depend
+    on the mesh."""
+    _, bprod = batch_mesh_info(mesh)
+    model_n = mesh.shape.get("model", 1)
+    if n_queries % bprod or cfg.n_partitions % model_n:
+        raise ValueError(f"{n_queries} queries and {cfg.n_partitions} partitions do not split "
+                         f"over {bprod} batch rows and {model_n} model ranks")
+    q_row = n_queries // bprod
+    b_loc = cfg.n_partitions // model_n
     q_cap = max(8, int(q_row * cfg.nprobe_max / cfg.n_partitions * cfg.q_cap_factor))
     tier = tiers.resolve(tier if tier is not None else cfg.tier)
     # the tier's fields beyond the probing/dispatch/rerank operands go back
     # to the tier, which assembles the scan's extra operands from them
     extra_fields = tuple(n for n in tier.store_specs(cfg) if n not in tiers.BASE_FIELDS)
 
-    @torch.no_grad()
-    def serve_step(model, store, queries, valid):
-        dev = queries.device
+    def rank_step(model, block, q, valid, b0):
+        dev = q.device
         # tombstoned/free slots never surface ids: occupancy folds into the id
         # plane, which the scan masks as id < 0
-        ids_loc = torch.where(store["occupancy"], store["ids"], -1)
+        ids_loc = torch.where(block["occupancy"], block["ids"], -1)
 
-        # ---- probing
+        # ---- probing, over every partition
         with record_function("lira.probing"):
-            q = queries
-            cents = store["centroids"]
+            cents = block["centroids"]
             cd = ((q * q).sum(-1, keepdim=True)
                   - 2.0 * q @ cents.T
                   + (cents * cents).sum(-1)[None, :])
@@ -99,9 +161,9 @@ def make_serve_step(cfg: LiraSystemConfig, n_queries: int, *, sigma: float, impl
             probe_ok[:, 0] = True                                    # always ≥1 partition
             probe_ok &= valid[:, None]                               # padding rows never probe
 
-        # ---- dispatch (sort-based)
+        # ---- dispatch (sort-based), this rank's partitions only
         with record_function("lira.dispatch"):
-            flat_p = pidx.reshape(-1)
+            flat_p = pidx.reshape(-1) - b0
             flat_ok = probe_ok.reshape(-1) & (flat_p >= 0) & (flat_p < b_loc)
             flat_q = torch.arange(q_row, device=dev)[:, None].expand_as(pidx).reshape(-1)
             key = torch.where(flat_ok, flat_p, b_loc)
@@ -123,9 +185,9 @@ def make_serve_step(cfg: LiraSystemConfig, n_queries: int, *, sigma: float, impl
         with record_function("lira.scan"):
             q_pad = torch.cat([q, torch.full((1, q.shape[1]), _SENTINEL, dtype=q.dtype,
                                              device=dev)])
-            ctx = tiers.ScanContext(q_loc=q, q_pad=q_pad, cd=cd, b_loc=b_loc, k=k)
-            scan_kw = tier.scan_kwargs(cfg, ctx, {n: store[n] for n in extra_fields})
-            dists, rids = scan.run(impl, qbuf, q_pad, store["vectors"], ids_loc, k, **scan_kw)
+            ctx = tiers.ScanContext(q_loc=q, q_pad=q_pad, cd=cd, b0=b0, b_loc=b_loc, k=k)
+            scan_kw = tier.scan_kwargs(cfg, ctx, {n: block[n] for n in extra_fields})
+            dists, rids = scan.run(impl, qbuf, q_pad, block["vectors"], ids_loc, k, **scan_kw)
 
         # ---- scatter back per query (row q_row takes the empty slots), merge
         with record_function("lira.merge"):
@@ -141,6 +203,33 @@ def make_serve_step(cfg: LiraSystemConfig, n_queries: int, *, sigma: float, impl
             dedup_hits = _dup_count(pool_i)
             loc_d, loc_i = kops.dedup_topk(pool_d, pool_i, k, impl=impl)
         return loc_d, loc_i, probe_ok.sum(-1).float(), overflow, dedup_hits
+
+    @torch.no_grad()
+    def serve_step(ranks, queries, valid):
+        outs = []
+        for i, row in enumerate(ranks):
+            q, v = queries[i * q_row:(i + 1) * q_row], valid[i * q_row:(i + 1) * q_row]
+            per = [rank_step(m, block, q.to(dev), v.to(dev), j * b_loc)
+                   for j, (dev, m, block) in enumerate(row)]
+            dev0 = row[0][0]
+            loc_d, loc_i, nprobe, overflow, dedup_hits = per[0]
+            if model_n > 1:
+                # the cross-rank merge: O(q_row·k·model_n), independent of N
+                with record_function("lira.merge"):
+                    all_d = torch.cat([r[0].to(dev0) for r in per], 1)
+                    all_i = torch.cat([r[1].to(dev0) for r in per], 1)
+                    dedup_hits = sum(r[4].to(dev0) for r in per) + _dup_count(all_i)
+                    overflow = sum(r[3].to(dev0) for r in per)
+                    loc_d, loc_i = kops.dedup_topk(all_d, all_i, k, impl=impl)
+            outs.append((loc_d, loc_i, nprobe, overflow, dedup_hits))
+        if len(outs) == 1:
+            return outs[0]
+        out_dev = outs[0][0].device
+        return (torch.cat([o[0].to(out_dev) for o in outs]),
+                torch.cat([o[1].to(out_dev) for o in outs]),
+                torch.cat([o[2].to(out_dev) for o in outs]),
+                sum(o[3].to(out_dev) for o in outs),
+                sum(o[4].to(out_dev) for o in outs))
 
     return serve_step
 
@@ -168,7 +257,8 @@ def _lexsort(minor: torch.Tensor, major: torch.Tensor) -> torch.Tensor:
 @dataclasses.dataclass
 class LiraEngine:
     """Build (k-means → probing model → redundancy → store) then serve query
-    batches through the serve step, on one device.
+    batches through the serve step over the engine's ``mesh`` (default one
+    rank on ``device``, where the store and the model live).
 
     Batches are padded to power-of-two buckets; the pad rows are masked out
     of dispatch. Serve steps are cached per (bucket, σ, tier, impl, k,
@@ -197,6 +287,7 @@ class LiraEngine:
     device: torch.device
     sigma: float = 0.5
     epoch: int = 0
+    mesh: Optional[Mesh] = None     # None: one rank on ``device``
     # attached front-end (serving/frontend.py); search_one routes through it
     frontend: Optional[object] = dataclasses.field(default=None, repr=False, compare=False)
     # tracer=None: spans are free no-ops (obs.trace.NOOP); metrics=None:
@@ -212,11 +303,18 @@ class LiraEngine:
                                            compare=False)
     _overflow_streak: int = dataclasses.field(default=0, init=False, repr=False,
                                               compare=False)
+    # (epoch, store, capacity, mesh) → place_ranks' placement of the model and store
+    _ranks: tuple = dataclasses.field(default=(None, None), init=False, repr=False,
+                                      compare=False)
 
     _SERVE_CACHE_MAX = 32   # σ sweeps must not pile up cache entries forever
     _AUTO_Q_CAP_AFTER = 2   # consecutive overflowing calls before a bump
     _GROW_SLACK = 1.5       # capacity overshoot a grow, so a steady insert
     #                         stream grows (and drops the cache) rarely
+
+    def __post_init__(self):
+        if self.mesh is None:
+            self.mesh = make_test_mesh(device=self.device)
 
     def _tracer(self):
         return self.tracer if self.tracer is not None else obs_trace.NOOP
@@ -224,10 +322,29 @@ class LiraEngine:
     def _registry(self) -> obs_metrics.MetricsRegistry:
         return self.metrics if self.metrics is not None else obs_metrics.default_registry()
 
+    def rank_operands(self) -> list:
+        """``place_ranks`` of the model and store over the mesh, placed again
+        only when the epoch, the store dict, the capacity or the mesh has
+        moved."""
+        key = (self.epoch, id(self.store), self.cfg.capacity, self.mesh)
+        if self._ranks[0] != key:
+            self._ranks = (key, place_ranks(self.model, self.store, self.cfg, self.mesh))
+        return self._ranks[1]
+
+    def resolve_impl(self, impl: Optional[str] = None) -> str:
+        """The kernel backend for ``impl`` (None: the config's), with
+        ``"auto"`` resolved for the devices the kernels run on, the mesh's
+        ranks, not the store's: ``"cuda"`` when a rank is on a card (its
+        wrappers take the plain versions for ranks on the CPU)."""
+        dev = next((d for d in self.mesh.devices if d.type == "cuda"), self.mesh.devices[0])
+        return kops.resolve_impl(impl if impl is not None else self.cfg.impl, dev)
+
     @classmethod
-    def build(cls, x, config: api.BuildConfig, *, device=None) -> "LiraEngine":
+    def build(cls, x, config: api.BuildConfig, *, device=None,
+              mesh: Optional[Mesh] = None) -> "LiraEngine":
         """Build an index over ``x`` [N, d] (array or tensor) on ``device``
-        (default the card; raises when there is none)."""
+        (default the card; raises when there is none), served over ``mesh``
+        (default one rank on ``device``)."""
         dev = resolve_device(device)
         tier = tiers.resolve(config.tier)
         gen = torch.Generator(device=dev)
@@ -267,19 +384,24 @@ class LiraEngine:
         store, cfg = tier.build_store(cfg, store_h, generator=gen)
         if not cfg.pq_m:  # tiers without PQ leave the knob at its default
             cfg = dataclasses.replace(cfg, pq_m=16)
-        return cls(cfg=cfg, model=model, store=store, device=dev, sigma=config.sigma)
+        return cls(cfg=cfg, model=model, store=store, device=dev, sigma=config.sigma,
+                   mesh=mesh)
 
     # ------------------------------------------------------------ serving
 
     def _batch_bucket(self, nq: int) -> int:
-        """Power-of-two batch buckets (≥8), as the reference pads: q_cap is
-        derived from the bucket, so the same bucket dispatches the same way."""
-        return max(8, 1 << max(0, nq - 1).bit_length())
+        """Power-of-two batch buckets (≥8), rounded up to a multiple of the
+        mesh's batch product so every batch row takes the same rows, as the
+        reference pads: q_cap is derived from the bucket, so the same bucket
+        dispatches the same way."""
+        _, bprod = batch_mesh_info(self.mesh)
+        bucket = max(8, 1 << max(0, nq - 1).bit_length())
+        return -(-bucket // bprod) * bprod
 
     def serve_fn(self, nq_pad: int, sigma: float, tier: str = "f32",
                  impl: Optional[str] = None, k: Optional[int] = None):
         """The cached serve step for one (bucket, σ, tier, impl, k,
-        q_cap_factor, capacity) key. Returns (fn, cache_hit, resolved impl).
+        q_cap_factor, capacity, mesh) key. Returns (fn, cache_hit, resolved impl).
 
         An entry is only a closure from ``make_serve_step``, so a hit saves
         no work yet: the cache keeps the reference's keys, LRU bound and
@@ -288,18 +410,19 @@ class LiraEngine:
         host sync (``torch.nonzero`` in ``serving/scan.py``) still blocks."""
         # normalize before keying: None, "auto" and the resolved backend share
         # one entry; so do tier aliases and k=None
-        impl = kops.resolve_impl(impl if impl is not None else self.cfg.impl, self.device)
+        impl = self.resolve_impl(impl)
         tier = tiers.resolve(tier).name
         k = self.cfg.k if k is None else int(k)
         # capacity is the shape mutations move (and PQ's rerank clamp), so it
-        # keys the cache; same-shape mutations keep hitting
+        # keys the cache; same-shape mutations keep hitting. A step is made
+        # for one mesh's q_row and b_loc
         key = (nq_pad, float(sigma), tier, impl, k, float(self.cfg.q_cap_factor),
-               int(self.cfg.capacity))
+               int(self.cfg.capacity), self.mesh)
         fn = self._serve_cache.pop(key, None)
         cache_hit = fn is not None
         if fn is None:
             fn = make_serve_step(self.cfg, nq_pad, sigma=float(sigma), impl=impl, k=k,
-                                 tier=tier)
+                                 mesh=self.mesh, tier=tier)
         self._serve_cache[key] = fn  # re-insert: dict order doubles as LRU
         while len(self._serve_cache) > self._SERVE_CACHE_MAX:
             self._serve_cache.pop(next(iter(self._serve_cache)))
@@ -341,11 +464,12 @@ class LiraEngine:
                 valid[:nq] = True
             with tr.span("engine.device", tier=tier_obj.name, impl=impl, bucket=nq_pad,
                          cache_hit=cache_hit) as sp_dev:
-                d, i, npb, ovf, dups = fn(self.model, self.store, qp, valid)
-                if self.device.type == "cuda":
-                    # the span ends when the device has finished, not when
-                    # the launches were queued
-                    torch.cuda.synchronize(self.device)
+                d, i, npb, ovf, dups = fn(self.rank_operands(), qp, valid)
+                # the span ends when the ranks' devices have finished, not
+                # when the launches were queued
+                for dev in self.mesh.unique_devices():
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize(dev)
             with tr.span("engine.post") as sp_post:
                 npb_np = npb[:nq].cpu().numpy()
                 overflow = int(ovf)
@@ -755,13 +879,15 @@ class LiraEngine:
             step, leaves, extra=extra, treedef=str(_jax_leaf_names(self.cfg)))
 
     @classmethod
-    def load(cls, directory, device=None, step: Optional[int] = None) -> "LiraEngine":
+    def load(cls, directory, device=None, step: Optional[int] = None, *,
+             mesh: Optional[Mesh] = None) -> "LiraEngine":
         """An engine from a ``save`` directory of either package: the config
         from the manifest's ``extra.config``, the probing parameters and the
         store fields its tier declares from the leaf files, each checked
         against the manifest, and the epoch and staleness counters. bfloat16
         stores are cast back. A saved kernel backend other than "ref" becomes
-        "auto" (the kernels on the card, the plain versions on the CPU)."""
+        "auto" (the kernels on the card, the plain versions on the CPU).
+        ``mesh`` as in ``build``."""
         dev = resolve_device(device)
         step_dir, meta = checkpoint.read_manifest(directory, step)
         fields = {f.name for f in dataclasses.fields(LiraSystemConfig)}
@@ -793,13 +919,15 @@ class LiraEngine:
         stale = extra.get("stale_inserts")
         return cls(cfg=cfg, model=model, store=store, device=dev,
                    sigma=float(extra.get("sigma", 0.5)), epoch=int(extra.get("epoch", 0)),
+                   mesh=mesh,
                    _stale_inserts=None if stale is None else np.asarray(stale, np.int64))
 
     @classmethod
-    def load_jax(cls, directory, device=None, step: Optional[int] = None) -> "LiraEngine":
+    def load_jax(cls, directory, device=None, step: Optional[int] = None, *,
+                 mesh: Optional[Mesh] = None) -> "LiraEngine":
         """``load`` of a JAX ``LiraEngine.save`` directory, the saved kernel
         backend not carried over at all: the engine serves with the device's
         default (the kernels on the card)."""
-        eng = cls.load(directory, device=device, step=step)
+        eng = cls.load(directory, device=device, step=step, mesh=mesh)
         eng.cfg = dataclasses.replace(eng.cfg, impl="auto")
         return eng

@@ -47,7 +47,6 @@ from typing import Callable, Optional
 import numpy as np
 
 from repro_torch.configs.base import FrontendConfig
-from repro_torch.kernels import ops as kops
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.serving import api, tiers
 
@@ -206,16 +205,14 @@ class ServingFrontend:
 
     def _resolve_key(self, req: api.SearchRequest) -> tuple:
         """Canonical compatibility key. Mirrors ``engine.serve_fn``'s
-        normalization (tier aliases, impl="auto" resolved for the engine's
-        device, k/σ=None) so requests that would share a serve-cache entry
-        coalesce into the same group."""
+        normalization (tier aliases, impl="auto" resolved for the devices of
+        the engine's ranks, k/σ=None) so requests that would share a
+        serve-cache entry coalesce into the same group."""
         eng = self.engine
         k = eng.cfg.k if req.k is None else int(req.k)
         sigma = float(eng.sigma if req.sigma is None else req.sigma)
         tier = tiers.resolve(req.tier if req.tier is not None else eng.cfg.tier).name
-        impl = kops.resolve_impl(req.impl if req.impl is not None else eng.cfg.impl,
-                                 eng.device)
-        return (k, sigma, tier, impl)
+        return (k, sigma, tier, eng.resolve_impl(req.impl))
 
     @staticmethod
     def _rows(req: api.SearchRequest) -> np.ndarray:

@@ -3,6 +3,9 @@ declares its store fields, builds them from the partition store, says which
 stores it can serve, and hands the scan its extra operands:
 
   * ``store_specs(cfg)`` — every store field's shape and dtype;
+  * ``store_pspecs(cfg)`` — for each field, the mesh axis its first dimension
+    is split over (``"model"``: one block of partitions a rank) or ``None``
+    (every rank holds all of it);
   * ``build_store(cfg, store_h, generator=)`` — (store dict, cfg), cfg amended
     where the build resolves a knob (PQ's ``pq_m`` default, ``pq_ks`` clamp);
   * ``encode_rows(cfg, store, x, parts)`` — the per-slot content planes of
@@ -43,7 +46,8 @@ class ScanContext:
     q_loc: torch.Tensor     # [q_row, d] query rows
     q_pad: torch.Tensor     # [q_row + 1, d] queries + sentinel row
     cd: torch.Tensor        # [q_row, B] query↔centroid squared distances
-    b_loc: int              # partitions on this device
+    b0: int                 # first partition of this rank's block
+    b_loc: int              # partitions on this rank
     k: int                  # top-k depth of this serve step
 
 
@@ -62,6 +66,11 @@ class F32Tier:
                 "vectors": ((b, c, d), store_dtype(cfg)),
                 "ids": ((b, c), torch.int32),
                 "occupancy": ((b, c), torch.bool)}
+
+    def store_pspecs(self, cfg=None) -> dict:
+        """Field name → the mesh axis its first dimension splits over."""
+        del cfg
+        return {"centroids": None, "vectors": "model", "ids": "model", "occupancy": "model"}
 
     def slot_fields(self, cfg) -> tuple:
         """Store fields indexed per (partition, slot): the planes a mutation
@@ -113,6 +122,12 @@ class PqTier(F32Tier):
         specs["codes"] = ((b, c, cfg.pq_m), code_dtype(cfg.pq_ks))
         specs["codebooks"] = ((cfg.pq_m, cfg.pq_ks, cfg.dim // cfg.pq_m), torch.float32)
         return specs
+
+    def store_pspecs(self, cfg=None) -> dict:
+        sp = super().store_pspecs(cfg)
+        sp["codes"] = "model"       # codes split with their vectors
+        sp["codebooks"] = None      # replicated, as the centroids
+        return sp
 
     def build_store(self, cfg, store_h, *, generator=None):
         from repro_torch.serving import quantized
@@ -182,13 +197,20 @@ class ResidualPqTier(PqTier):
         specs["cterm"] = ((cfg.n_partitions, cfg.capacity), torch.float32)
         return specs
 
+    def store_pspecs(self, cfg=None) -> dict:
+        sp = super().store_pspecs(cfg)
+        sp["cterm"] = "model"       # rides with its codes
+        return sp
+
     def scan_kwargs(self, cfg, ctx: ScanContext, fields: dict) -> dict:
         kw = super().scan_kwargs(cfg, ctx, fields)
         # ‖c_b‖² − 2⟨q, c_b⟩ = cd − ‖q‖² per (query, partition), from the
-        # probing distances; the zero row is the empty slot's
+        # probing distances over every partition; the rank takes its block's
+        # columns. The zero row is the empty slot's
         off = ctx.cd - (ctx.q_loc * ctx.q_loc).sum(-1, keepdim=True)
         off_pad = torch.cat([off, off.new_zeros((1, off.shape[1]))])
-        kw.update(cterm_loc=fields["cterm"], off_loc=off_pad[:, :ctx.b_loc].T)
+        kw.update(cterm_loc=fields["cterm"],
+                  off_loc=off_pad[:, ctx.b0:ctx.b0 + ctx.b_loc].T)
         return kw
 
 

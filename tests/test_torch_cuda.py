@@ -527,3 +527,106 @@ def test_adc_wrappers_reject_what_they_do_not_take(cuda_device):
         adc_mod.pq_adc_topk(big, big_codes, torch.zeros(7, dtype=torch.int32,
                                                         device=cuda_device), 3)
     assert (adc_mod.full_launches, adc_mod.flat_launches, adc_mod.batched_launches) == before
+
+
+# ------------------------------------------------------------ mesh and cluster
+
+def _small_build(tier="residual_pq", n=6000, **kw):
+    from repro_torch.data.synthetic import make_vector_dataset
+    from repro_torch.serving.api import BuildConfig
+
+    ds = make_vector_dataset(n=n, n_queries=37, dim=32, n_modes=24, seed=8)
+    return ds, BuildConfig(n_partitions=16, k=10, eta=0.03, epochs=2, nprobe_max=8, pq_m=8,
+                           pq_ks=32, tier=tier, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("data, model", ((1, 4), (2, 2)))
+def test_meshed_step_kernels_match_plain(cuda_device, data, model):
+    """Over a mesh on the card: impl="cuda" against "ref" under the rule,
+    the kernels launched once a rank (and once a batch row to merge across
+    ranks), and the f32 tier over model ranks alone equal to the unsharded
+    search bit for bit."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.serving.engine import LiraEngine
+
+    ds, bc = _small_build()
+    solo = LiraEngine.build(ds.base, bc, device=cuda_device)
+    eng = dataclasses.replace(solo, mesh=make_test_mesh(data, model, device=cuda_device))
+    for tier in ("f32", "residual_pq"):
+        before = (l2_mod.launches, dd_mod.launches, adc_mod.launches)
+        got = eng.search(ds.queries, tier=tier, impl="cuda")
+        after = (l2_mod.launches, dd_mod.launches, adc_mod.launches)
+        ranks = data * model
+        scan = (ranks, 0) if tier == "f32" else (0, ranks)
+        assert (after[0] - before[0], after[2] - before[2]) == scan
+        assert after[1] - before[1] == ranks + data
+        ref = eng.search(ds.queries, tier=tier, impl="ref")
+        atol = rt.l2_atol(ds.queries, solo.store["vectors"], solo.store["ids"])
+        rt.assert_topk_match(got.dists, got.ids, ref.dists, ref.ids, atol, what=tier)
+        assert (got.overflow, got.stats.dedup_hits) == (ref.overflow, ref.stats.dedup_hits)
+        one = solo.search(ds.queries, tier=tier, impl="cuda")
+        assert got.stats.dedup_hits <= one.stats.dedup_hits
+        if tier == "f32" and data == 1:
+            np.testing.assert_array_equal(got.dists, one.dists)
+            np.testing.assert_array_equal(got.ids, one.ids)
+
+
+@pytest.mark.cuda
+def test_ranks_on_the_card_over_a_store_elsewhere_follow_mutations(cuda_device):
+    """A store on the CPU served by ranks on the card: each rank's block and
+    the model are copied to the card, and copied again after a mutation. The
+    default backend follows the ranks' device: the kernels launch, once a
+    rank for the scan and once more for the cross-rank merge."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.serving.engine import LiraEngine
+
+    ds, bc = _small_build()
+    host = LiraEngine.build(ds.base, bc, device="cpu")
+    eng = dataclasses.replace(host, mesh=make_test_mesh(1, 2, device=cuda_device))
+    ranks = eng.rank_operands()
+    assert all(block["vectors"].device.type == "cuda" for _, _, block in ranks[0])
+    assert next(ranks[0][0][1].parameters()).device.type == "cuda"
+    atol = rt.l2_atol(ds.queries, host.store["vectors"], host.store["ids"])
+    for tier, scan_mod in (("f32", l2_mod), ("residual_pq", adc_mod)):
+        before = (scan_mod.launches, dd_mod.launches)
+        first = eng.search(ds.queries, tier=tier)
+        assert first.stats.impl == "cuda"
+        assert (scan_mod.launches - before[0], dd_mod.launches - before[1]) == (2, 3)
+        want = host.search(ds.queries, tier=tier)
+        assert want.stats.impl == "ref"
+        rt.assert_topk_match(first.dists, first.ids, want.dists, want.ids, atol, what=tier)
+    dead = first.ids[:5, :2].reshape(-1)
+    eng.delete(dead)
+    before = adc_mod.launches
+    after = eng.search(ds.queries)
+    assert adc_mod.launches - before == 2
+    assert eng.rank_operands() is not ranks and not np.isin(after.ids, dead).any()
+
+
+@pytest.mark.cuda
+def test_cluster_kernels_match_plain(cuda_device):
+    from repro_torch.serving.cluster import ClusterConfig, LiraCluster
+    from repro_torch.utils.clock import FakeClock
+
+    ds, bc = _small_build(n=8000)
+    cl = LiraCluster.build(ds.base, bc, ClusterConfig(n_shards=2, n_replicas=2, seed=1),
+                           device=cuda_device, clock=FakeClock(), fixed_service_s=1e-3)
+    atol = max(rt.l2_atol(ds.queries, g.engine.store["vectors"], g.engine.store["ids"])
+               for g in cl.groups)
+    for tier in ("f32", "residual_pq"):
+        before = dd_mod.launches
+        got = cl.search(ds.queries, tier=tier, impl="cuda")
+        assert dd_mod.launches - before == 2     # one merge inside each shard engine
+        ref = cl.search(ds.queries, tier=tier, impl="ref")
+        rt.assert_topk_match(got.dists, got.ids, ref.dists, ref.ids, atol, what=tier)
+        assert got.stats.impl == "cuda" and ref.stats.impl == "ref"
+        assert (got.overflow, got.stats.dedup_hits) == (ref.overflow, ref.stats.dedup_hits)

@@ -251,7 +251,7 @@ def test_serve_cache_key_normalizes_and_hits(engines, dataset):
     assert len(eng._serve_cache) == 4
     key = next(iter(eng._serve_cache))
     assert key == (64, eng.sigma, "f32", "ref", eng.cfg.k, eng.cfg.q_cap_factor,
-                   eng.cfg.capacity)
+                   eng.cfg.capacity, eng.mesh)
 
 
 def test_serve_cache_is_an_lru_of_32(engines, dataset):

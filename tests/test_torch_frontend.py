@@ -28,8 +28,9 @@ from _torch_engines import jax_and_port, raw_engine, tier_engines
 from repro_torch import testing as rt
 from repro_torch.configs.base import FrontendConfig
 from repro_torch.data.synthetic import make_vector_dataset
+from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.serving.api import BuildConfig, SearchRequest
-from repro_torch.serving.engine import LiraEngine, make_serve_step
+from repro_torch.serving.engine import LiraEngine, make_serve_step, place_ranks
 from repro_torch.serving.frontend import ServingFrontend, simulate_open_loop
 from repro_torch.serving.quantized import build_quantized_store
 from repro_torch.utils.clock import FakeClock
@@ -450,9 +451,10 @@ def test_unpadded_serve_step_matches_frontend_rows(tiny_engine):
     eng, q = tiny_engine
     fe, _ = _frontend(eng, max_batch=8)
     pends = [fe.submit(SearchRequest(queries=q[i])) for i in range(8)]
-    fn = make_serve_step(eng.cfg, 8, sigma=-1.0, impl="ref", k=eng.cfg.k)
-    d, i, _, _, _ = fn(eng.model, eng.store, torch.from_numpy(q[:8]),
-                       torch.ones(8, dtype=torch.bool))
+    mesh = make_test_mesh(device="cpu")
+    fn = make_serve_step(eng.cfg, 8, sigma=-1.0, impl="ref", k=eng.cfg.k, mesh=mesh)
+    d, i, _, _, _ = fn(place_ranks(eng.model, eng.store, eng.cfg, mesh),
+                       torch.from_numpy(q[:8]), torch.ones(8, dtype=torch.bool))
     for r, p in enumerate(pends):
         np.testing.assert_array_equal(p.result().dists[0], d[r].numpy())
         np.testing.assert_array_equal(p.result().ids[0], i[r].numpy())

@@ -26,6 +26,9 @@ def _imports(path):
 def test_no_module_imports_jax_or_the_jax_package():
     files = sorted(PKG.rglob("*.py"))
     assert len(files) > 10
+    for part in ("launch/mesh.py", "launch/serve.py", "distributed/fault.py",
+                 "serving/cluster.py"):
+        assert PKG / part in files
     bad = [(str(f.relative_to(PKG)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
@@ -36,7 +39,8 @@ def test_importing_the_port_leaves_jax_unloaded():
             "repro_torch.configs.lira_ann, repro_torch.configs.lira_ann_q, "
             "repro_torch.serving.quantized, repro_torch.core.pq, repro_torch.data.synthetic, "
             "repro_torch.serving.frontend, repro_torch.serving.mutable, repro_torch.obs, "
-            "repro_torch.utils.clock, repro_torch.ckpt.checkpoint; "
+            "repro_torch.utils.clock, repro_torch.ckpt.checkpoint, repro_torch.launch.mesh, "
+            "repro_torch.launch.serve, repro_torch.distributed, repro_torch.serving.cluster; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(PKG.parent))
@@ -44,7 +48,10 @@ def test_importing_the_port_leaves_jax_unloaded():
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.serving.api import BuildConfig
+    from repro_torch.serving.cluster import ClusterConfig, LiraCluster
     from repro_torch.serving.engine import LiraEngine
     from repro_torch.utils.device import resolve_device
 
@@ -56,7 +63,14 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         LiraEngine.load_jax("/nonexistent")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         LiraEngine.load("/nonexistent")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_test_mesh(model=2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LiraCluster.build(x, BuildConfig(n_partitions=4, k=5), ClusterConfig(n_shards=2))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main([])
     assert resolve_device("cpu") == torch.device("cpu")
+    assert make_test_mesh(model=2, device="cpu").devices == (torch.device("cpu"),) * 2
 
 
 def _entry_points():
