@@ -146,7 +146,34 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                against one solo cluster search; build seconds a shard,
                median batch, peak device memory; and the f32 recall of the
                same shards at the single engine's train_frac.
-Phases 7-12 and 15-16 zero the launch counters just before each path and
+ 17. eval    — run after 15, before 14, over the main engine's fresh store
+               (a PartitionStore view: centroids, vectors, ids, counts of its
+               occupancy) and its first 1,000 queries: the evaluation
+               engine's partition_topk at q_batch 128 through l2_topk_qbuf
+               over a dense dispatch buffer (8 launches; one block of all
+               1,000 gives the same answer), the kernel held against its
+               plain version on two blocks of 8 queries and timed beside its
+               bound; a full probe merged equal to exact ground truth;
+               evaluate_probe of probe_lira(p̂, σ) from the engine's own
+               model at least the serve path's f32 recall query by query
+               (queries below it only where the serve step probed a
+               partition whose p̂ lies within 1e-4 of σ or of the top p̂,
+               or tied at the k-th place, each counted); ids equal up to
+               ties where both paths probe the same partitions; IVF swept to
+               LIRA's recall, LIRA's cmp saving reported;
+ 18. train   — run after 17: the probing model through the port's Trainer
+               over 100,000 base rows (nearest engine centroid, exact k = 100
+               labels within the subset), ProbingPipeline at global batch
+               512, AdamW on a cosine schedule, 400 steps, checkpoints every
+               100; a run failed after step 250's update and resumed from
+               step 200 ends equal bit for bit to an uninterrupted run;
+               steps/s;
+ 19. examples — last: python -m repro_torch.examples.serve_ann (recall@10 of
+               both tiers ≥ 0.65 and within 0.02), .quickstart (LIRA's cmp at
+               most IVF's at matched recall) and .train_probing_model twice
+               (the second run resumes at step 600), each a subprocess on
+               the card at the example's own sizes.
+Phases 7-12, 15-16 and 17 zero the launch counters just before each path and
 read them just after. Every matmul runs in full f32 (TF32 off for matmul and cuDNN),
 so the plain versions are exact oracles.
 The line before the last is the kernels JSON; the last line is
@@ -162,6 +189,9 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# phase 18 runs cuBLAS under deterministic algorithms, which needs its
+# workspace fixed before CUDA starts
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 N_BASE, N_PQ_BASE, N_QUERIES, BATCH = 1_000_000, 100_000, 10_000, 1_000
@@ -1706,6 +1736,336 @@ def cluster_phase(ds, counters, gti, recall, smi) -> dict:
     return entries
 
 
+# ---------------------------------------------------------------- evaluation, training, examples
+
+EVAL_Q_BATCH = 128             # partition_topk's default block of queries
+EVAL_CHECK_ROWS = 8            # rows of each small block held against the plain version
+EVAL_PLAIN_SLICE = 16          # rows a plain call takes (see eval_phase)
+SIGMA_ROUNDING = 1e-4          # p̂ within this of σ (or of the top p̂) may land either side
+SERVE_ANN_RECALL = 0.65        # serve_ann's recall@10 floor (PERF.md §4, phase 19)
+
+
+def eval_phase(eng, ds, gtd, gti) -> dict:
+    """17. The host evaluation path over a PartitionStore view of the main
+    engine's fresh store (its centroids, vectors, ids and the counts of its
+    occupancy) and its first 1,000 queries: partition_topk at q_batch 128
+    (l2_topk_qbuf over a dense dispatch buffer, its launches counted) and in
+    one block of all 1,000 (the same answer); the kernel held against its
+    plain version at the 128-query block (the plain answer taken in slices
+    of 16 queries) and on two blocks of 8 queries, and timed beside its
+    bound at the 128-query block; a full probe merged equal to exact ground
+    truth;
+    evaluate_probe of probe_lira(p̂, σ) query by query at least the serve
+    path's f32 recall (the serve step probes a subset: it caps at
+    nprobe_max and drops overflow), the queries where the two paths' p̂
+    straddle σ within rounding counted; ids equal up to ties wherever the
+    serve probes equal the evaluation mask; then IVF swept to LIRA's recall.
+    Returns the kernel's JSON entry at the dense-dispatch shapes."""
+    import numpy as np
+    import torch
+
+    from repro_torch import testing as rt
+    from repro_torch.core import retrieval as ret
+    from repro_torch.core.partitions import PartitionStore
+    from repro_torch.kernels import l2_topk as l2_mod
+    from repro_torch.kernels import ops as kops
+
+    t_phase = time.perf_counter()
+    k, n_q, sigma = eng.cfg.k, BATCH, eng.sigma
+    st = eng.store
+    ids = torch.where(st["occupancy"], st["ids"], -1)
+    store = PartitionStore(centroids=st["centroids"], vectors=st["vectors"], ids=ids,
+                           counts=st["occupancy"].sum(1).to(torch.int32))
+    b = store.n_partitions
+    q_np, gtd, gti = ds.queries[:n_q], gtd[:n_q], gti[:n_q]
+    q = torch.as_tensor(q_np, device=store.vectors.device)
+    atol = rt.l2_atol(q, store.vectors, ids)
+
+    l2_mod.launches = 0
+    t0 = time.perf_counter()
+    ptk = ret.partition_topk(store, q_np, k)
+    topk_s = time.perf_counter() - t0
+    launches = l2_mod.launches
+    want = -(-n_q // EVAL_Q_BATCH)
+    if launches != want:
+        raise AssertionError(f"eval   partition_topk launched l2_topk_qbuf {launches} times, "
+                             f"not {want}")
+    t0 = time.perf_counter()
+    one = ret.partition_topk(store, q_np, k, q_batch=n_q)
+    one_s = time.perf_counter() - t0
+    same = np.array_equal(one.dists, ptk.dists) and np.array_equal(one.ids, ptk.ids)
+    rt.assert_topk_match(one.dists, one.ids, ptk.dists, ptk.ids, atol,
+                         what="eval   partition_topk in one block vs blocks of 128")
+    if not (ptk.dists[..., 1:] >= ptk.dists[..., :-1]).all():
+        raise AssertionError("eval   a partition's top-k is not ascending")
+    log(f"eval   partition_topk of {n_q} queries x {b} partitions at k {k}: {launches} "
+        f"launches of l2_topk_qbuf at q_batch {EVAL_Q_BATCH}, {topk_s:.3f} s wall with the "
+        f"copies to the host ({ptk.dists.nbytes + ptk.ids.nbytes} B); in one block of {n_q}: "
+        f"{one_s:.3f} s, {'equal bit for bit' if same else 'equal under the rule'}")
+    del one
+
+    # the kernel against its plain version on two blocks of 8 queries, each
+    # one partly filled group of slots a partition (the plain version's
+    # [B, S, C] distance block is 55 MB a query row at this capacity)
+    err_small = 0.0
+    for s0 in (0, EVAL_Q_BATCH):
+        qp, qb = ret.dense_dispatch(q[s0:s0 + EVAL_CHECK_ROWS], b)
+        err_small = max(err_small, compare_l2(f"eval   block of {EVAL_CHECK_ROWS} at query {s0}",
+                                              qp, qb, store.vectors, ids, k))
+    qp, qb = ret.dense_dispatch(q[:EVAL_Q_BATCH], b)
+    ms = time_ms(lambda: l2_mod.l2_topk_qbuf(qp, qb, store.vectors, ids, k), 10)
+    qp_all, qb_all = ret.dense_dispatch(q, b)
+    ms_all = time_ms(lambda: l2_mod.l2_topk_qbuf(qp_all, qb_all, store.vectors, ids, k), 3)
+    del qp_all, qb_all
+    torch.cuda.empty_cache()
+
+    # the plain version of the same function on the same 128 queries, in
+    # slices of 16 (at 128 rows its distance block alone is 7 GB and its
+    # sort several times that); the slices' [B, 16, k] answers side by side
+    # are what the kernel's [B, 128, k] answer at the main path's shapes is
+    # held to
+    parts = []
+
+    def plain():
+        parts.clear()
+        for s0 in range(0, EVAL_Q_BATCH, EVAL_PLAIN_SLICE):
+            p, bq = ret.dense_dispatch(q[s0:s0 + EVAL_PLAIN_SLICE], b)
+            parts.append(kops.l2_topk_qbuf(p, bq, store.vectors, ids, k, impl="ref"))
+    plain_ms = time_ms(plain, 1, 1)
+    d_p, i_p = (torch.cat([t[j] for t in parts], 1) for j in (0, 1))
+    del parts
+    torch.cuda.empty_cache()
+    d_k, i_k = kops.l2_topk_qbuf(qp, qb, store.vectors, ids, k, impl="cuda")
+    err = rt.assert_topk_match(d_k, i_k, d_p, i_p, rt.qbuf_atol(qp, qb, store.vectors, ids),
+                               what=f"eval   l2_topk_qbuf vs its plain version at the dense "
+                                    f"dispatch of {EVAL_Q_BATCH} queries")
+    del d_k, i_k, d_p, i_p
+    bound = bound_entry(*l2_bound(qp, qb, store.vectors, ids, k))
+    pl = l2_mod.plan(qp, qb, store.vectors, ids, k)
+    work = qbuf_item_work(pl["items"], ids)
+    log(f"eval   kernel l2_topk_qbuf at the dense dispatch of {EVAL_Q_BATCH} queries (q_pad "
+        f"{list(qp.shape)}, qbuf {list(qb.shape)}): equal to its plain version there (max abs "
+        f"err {err:.3g}) and on 2 blocks of {EVAL_CHECK_ROWS} (max abs err {err_small:.3g}); "
+        f"{ms:.3f} ms (plain {plain_ms:.3f} ms in slices of {EVAL_PLAIN_SLICE}, bound "
+        f"{bound[0]:.3f} ms by {bound[1]}); all {n_q} in one block {ms_all:.3f} ms; "
+        f"{work.numel()} work items, {pl['split_items']} split, heaviest "
+        f"{100 * float(work.max() / work.sum()):.2f}%, workspace {pl['workspace_bytes']} B")
+    entry = kernel_entry(
+        "l2_topk_qbuf/partition_topk", "l2_topk_qbuf.cu", "src/repro/kernels/l2_topk.py:247",
+        launches, err, ms, plain_ms, bound,
+        {"q_pad": list(qp.shape), "qbuf": list(qb.shape), "cands": list(store.vectors.shape),
+         "k": k, "occupied_slots": qb.numel(), "one_block_ms": ms_all,
+         "one_block_rows": n_q, "plain_slice_rows": EVAL_PLAIN_SLICE,
+         "small_blocks_rows": EVAL_CHECK_ROWS, "small_blocks_max_abs_err": err_small,
+         "split_items": pl["split_items"], "heaviest_item_share": float(work.max() / work.sum())})
+    del qp, qb, pl
+
+    # a full probe is exact
+    full = np.ones((n_q, b), bool)
+    d_full, i_full = ret.merge_topk(ptk, full, k)
+    err_full = rt.assert_topk_match(d_full, i_full, gtd, gti, atol,
+                                    what="eval   full probe vs exact ground truth")
+    r_full = ret.evaluate_probe(ptk, full, gti, k)
+    log(f"eval   full probe: merge_topk equal to exact ground truth for all {n_q} queries (ids "
+        f"up to ties at the {k}th place, max abs err {err_full:.3g}); recall@{k} "
+        f"{r_full.recall:.4f}, cmp {r_full.cmp_mean:.1f}")
+
+    # LIRA through the evaluation engine against the serve path, query by query
+    with Calls() as calls:
+        served = eng.search(q_np, tier="f32")
+    (_, qbuf_s, _, _, _), _ = next((a, kw) for n, a, kw in calls if n == "l2_topk_qbuf")
+    del calls
+    slot_b, slot_s = torch.nonzero(qbuf_s < n_q, as_tuple=True)
+    serve_mask = np.zeros((n_q, b), bool)
+    serve_mask[qbuf_s[slot_b, slot_s].cpu().numpy(), slot_b.cpu().numpy()] = True
+    cd = ret.lira_inputs(store, q_np)
+    with torch.no_grad():
+        p_hat = eng.model.probs(q, torch.as_tensor(cd, device=q.device)).cpu().numpy()
+    mask = ret.probe_lira(p_hat, sigma)
+    t0 = time.perf_counter()
+    lira = ret.evaluate_probe(ptk, mask, gti, k)
+    eval_s = time.perf_counter() - t0
+    serve_rec = ret._count_hits(served.ids, np.ascontiguousarray(gti[:, :k])) / k
+    near = ((np.abs(p_hat - sigma) <= SIGMA_ROUNDING)
+            | (np.abs(p_hat - p_hat.max(1, keepdims=True)) <= SIGMA_ROUNDING))
+    outside = serve_mask & ~mask
+    lower = lira.per_query_recall < serve_rec
+    straddled = lower & outside.any(1) & ((outside & ~near).sum(1) == 0)
+    d_m, i_m = ret.merge_topk(ptk, mask, k)
+    # any other query below the serve path's recall must hold the same
+    # answer up to ties at the k-th place
+    tied = np.flatnonzero(lower & ~straddled)
+    rt.assert_topk_match(d_m[tied], i_m[tied], served.dists[tied], served.ids[tied], atol,
+                         what=f"eval   queries {tied[:20].tolist()} below the serve path's "
+                              f"recall with no p̂ straddling σ")
+    log(f"eval   LIRA σ {sigma} on the evaluation engine: recall@{k} {lira.recall:.4f}, cmp "
+        f"{lira.cmp_mean:.1f}, nprobe {lira.nprobe_mean:.3f} ({eval_s:.3f} s on the host); the "
+        f"serve path's f32 recall on the same queries {float(serve_rec.mean()):.4f} (nprobe_eff "
+        f"{float(served.nprobe_eff.mean()):.3f}, overflow {served.overflow}); query by query "
+        f"at least the serve path's on {int((~lower).sum())} of {n_q}; below on "
+        f"{int(straddled.sum())} where the serve step probed a partition whose p̂ is within "
+        f"{SIGMA_ROUNDING} of σ or of the top p̂, and on {len(tied)} with the same answer up "
+        f"to ties at the {k}th place; {int(outside.any(1).sum())} queries probed a partition "
+        f"outside the mask, {int((mask & ~serve_mask).any(1).sum())} missed one inside it")
+    eq = (serve_mask == mask).all(1)
+    err_eq = rt.assert_topk_match(d_m[eq], i_m[eq], served.dists[eq], served.ids[eq], atol,
+                                  what="eval   merge vs serve where the probes are equal")
+    bits = int((np.all(d_m[eq] == served.dists[eq], 1) & np.all(i_m[eq] == served.ids[eq],
+                                                                  1)).sum())
+    log(f"eval   {int(eq.sum())} of {n_q} queries probe the same partitions on both paths: "
+        f"ids equal up to ties (max abs err {err_eq:.3g}), {bits} rows equal bit for bit")
+
+    # IVF to LIRA's recall (recall is monotone in nprobe, so bisection)
+    lo, hi, res = 1, b, {}
+
+    def ivf(n):
+        if n not in res:
+            res[n] = ret.evaluate_probe(ptk, ret.probe_ivf(cd, n), gti, k)
+        return res[n]
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if ivf(mid).recall >= lira.recall:
+            hi = mid
+        else:
+            lo = mid + 1
+    at = ivf(lo)
+    below = f"; at nprobe {lo - 1}: recall {ivf(lo - 1).recall:.4f}" if lo > 1 else ""
+    log(f"eval   IVF reaches LIRA's recall@{k} {lira.recall:.4f} at nprobe {lo} (recall "
+        f"{at.recall:.4f}, cmp {at.cmp_mean:.1f}{below}); LIRA's cmp "
+        f"{lira.cmp_mean:.1f} saves {100 * (1 - lira.cmp_mean / at.cmp_mean):.1f}% of IVF's "
+        f"distance computations ({len(res)} IVF points evaluated)")
+    log(f"eval   phase {time.perf_counter() - t_phase:.1f} s")
+    return entry
+
+
+TRAIN_ROWS, TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 100_000, 400, 100, 250
+
+
+def train_phase(eng, ds) -> None:
+    """18. The probing model trained through the port's Trainer at the main
+    engine's widths: 100,000 base rows, their nearest centroid among the
+    engine's, exact k = 100 labels within the subset (as LiraEngine.build
+    makes them), ProbingPipeline at global batch 512, AdamW on a cosine
+    schedule. A run that fails after step 250's update and resumes from
+    step 200's checkpoint ends equal bit for bit to an uninterrupted run of
+    400 steps. Deterministic algorithms are on for the phase (cuBLAS's
+    workspace is fixed at the top of this script)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.core import ground_truth as gt
+    from repro_torch.core import probing
+    from repro_torch.core.kmeans import assign_points, centroid_distances
+    from repro_torch.core.train_probing import make_train_step, train_state
+    from repro_torch.data.pipeline import PipelineSpec, ProbingPipeline
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    dev = eng.device
+    cents = eng.store["centroids"]
+    b, k = cents.shape[0], eng.cfg.k
+    xs = torch.as_tensor(ds.base[:TRAIN_ROWS], device=dev)
+    part, _ = assign_points(xs, cents)
+    _, sti = gt.exact_knn(xs, xs, k, exclude_self=True)
+    lab = torch.zeros((len(xs), b), dtype=torch.float32, device=dev)
+    rows = torch.arange(len(xs), device=dev).repeat_interleave(k)
+    lab[rows, part.long()[torch.as_tensor(sti, device=dev).long()].reshape(-1)] = 1.0
+    cd = centroid_distances(xs, cents)
+    pipe = ProbingPipeline(PipelineSpec(global_batch=512, seed=0), ds.base[:TRAIN_ROWS],
+                           cd.cpu().numpy(), lab.cpu().numpy())
+    del lab, cd, sti
+    log(f"train  labels for {len(xs)} rows in {time.perf_counter() - t_phase:.1f} s (mean "
+        f"{float(pipe.labels.sum(1).mean()):.2f} kNN partitions a row)")
+    ckpt_dir = os.path.join(ROOT, "build", "chip_smoke_train")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    def trainer(ckpt=None):
+        model = probing.ProbingModel(probing.ProbingConfig(dim=xs.shape[1], n_partitions=b),
+                                     generator=torch.Generator(dev).manual_seed(1), device=dev)
+        tx = opt.AdamW(model.parameters(), opt.cosine_schedule(1e-3, 50, TRAIN_STEPS))
+        return Trainer(make_train_step(model, tx), train_state(model, tx), pipe,
+                       ckpt_manager=ckpt, ckpt_every=TRAIN_CKPT_EVERY, log_every=50)
+
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        t0 = time.perf_counter()
+        gold, hist = trainer().run(TRAIN_STEPS)
+        torch.cuda.synchronize()
+        gold_s = time.perf_counter() - t0
+        cm = CheckpointManager(ckpt_dir, keep=3)
+        try:
+            trainer(cm).run(TRAIN_STEPS, fail_at=TRAIN_FAIL_AT)
+            raise AssertionError("train  the run did not fail")
+        except RuntimeError as e:
+            if "simulated failure" not in str(e):
+                raise
+        t2 = trainer(cm)
+        resumed = t2.start_step
+        if resumed != TRAIN_FAIL_AT // TRAIN_CKPT_EVERY * TRAIN_CKPT_EVERY:
+            raise AssertionError(f"train  resumed at step {resumed}")
+        state, hist2 = t2.run(TRAIN_STEPS)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    bad = [i for i, (a, c) in enumerate(zip(gold, state)) if not torch.equal(a, c)]
+    if bad or [h["loss"] for h in hist] != [h["loss"] for h in hist2]:
+        raise AssertionError(f"train  the resumed run differs from the uninterrupted one in "
+                             f"leaves {bad}")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    log(f"train  {TRAIN_STEPS} steps at global batch 512: {TRAIN_STEPS / gold_s:.1f} steps/s "
+        f"({gold_s:.2f} s, host batches included); loss {hist[0]['loss']:.3f} at step "
+        f"{hist[0]['step']} → {hist[-1]['loss']:.3f} at {hist[-1]['step']}; failed after step "
+        f"{TRAIN_FAIL_AT}'s update, resumed at step {resumed}: all {len(state)} state "
+        f"leaves and the loss history equal bit for bit to the uninterrupted run")
+    log(f"train  phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def run_example(name, *args) -> str:
+    """``python -m repro_torch.examples.<name>`` on the card; its output."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-m", f"repro_torch.examples.{name}", *args],
+                         capture_output=True, text=True, env=env, cwd=ROOT, timeout=600)
+    for line in out.stdout.splitlines():
+        log(f"examples {name} | {line}")
+    if out.returncode:
+        raise AssertionError(f"examples {name} exited {out.returncode}: {out.stderr[-2000:]}")
+    log(f"examples {name}: exit 0 in {time.perf_counter() - t0:.1f} s")
+    return out.stdout
+
+
+def examples_phase() -> None:
+    """19. The three LIRA examples as subprocesses on the card at their own
+    sizes: serve_ann's recall@10 on both tiers at least SERVE_ANN_RECALL and
+    within 0.02 of each other; quickstart's LIRA visiting no more points than
+    IVF at matched recall; train_probing_model run twice, the second run
+    resuming at step 600."""
+    import re
+    import shutil
+
+    text = run_example("serve_ann")
+    rec = [float(r) for r in re.findall(r"recall@10=([\d.]+)", text)]
+    if len(rec) != 2 or min(rec) < SERVE_ANN_RECALL or abs(rec[0] - rec[1]) > 0.02:
+        raise AssertionError(f"examples serve_ann: recall@10 {rec}")
+    text = run_example("quickstart")
+    cmp_ = {m: float(c) for m, c in re.findall(r"(LIRA|IVF) ?: recall=[\d.]+ cmp=(\d+)", text)}
+    if len(cmp_) != 2 or cmp_["LIRA"] > cmp_["IVF"]:
+        raise AssertionError(f"examples quickstart: cmp {cmp_}")
+    ckpt = os.path.join(ROOT, "build", "chip_smoke_probe_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    for start in (0, 600):
+        text = run_example("train_probing_model", "--ckpt-dir", ckpt)
+        if f"starting at step {start} " not in text:
+            raise AssertionError(f"examples train_probing_model: not started at step {start}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    log(f"examples serve_ann recall@10 {rec} (floor {SERVE_ANN_RECALL}), quickstart cmp "
+        f"{cmp_}, train_probing_model resumed at step 600")
+
+
 # ---------------------------------------------------------------- phases
 
 def main(n_base: int = N_BASE, n_queries: int = N_QUERIES) -> int:
@@ -1984,17 +2344,21 @@ def main(n_base: int = N_BASE, n_queries: int = N_QUERIES) -> int:
          slots16, kw16, c16, q16, res_in, deep_in, f32_in, inputs, captured)
     torch.cuda.empty_cache()
 
-    # 13. the serve surface; 15. the mesh; 14. churn on the main engine;
-    # 16. the cluster, after the main engine is freed
+    # 13. the serve surface; 15. the mesh; 17. the evaluation path and 18.
+    # the trainer over the fresh store; 14. churn on the main engine; 16. the
+    # cluster, after the main engine is freed; 19. the examples
     t0 = time.perf_counter()
     serve_surface_phase(eng, deep, eng_pq, ds)
     del eng_pq, deep, engine    # engine: phase 4's loop variable, the last path's (deep)
     log(f"surface phase {time.perf_counter() - t0:.1f} s")
     meshed = mesh_phase(eng, ds, counters, smi)
+    kernels.append(eval_phase(eng, ds, gtd, gti))
+    train_phase(eng, ds)
     churn_phase(eng, ds, counters, smi)
     del eng
     torch.cuda.empty_cache()
     clustered = cluster_phase(ds, counters, gti, recall, smi)
+    examples_phase()
     for kern in kernels:
         for path, found in (("mesh", meshed), ("cluster", clustered)):
             if kern["name"] in found:

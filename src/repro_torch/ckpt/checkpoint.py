@@ -1,5 +1,5 @@
-"""Numpy-only writer and reader of the step directories
-``repro/ckpt/checkpoint.py`` writes: ``<dir>/step_<N:010d>/manifest.json``
+"""Writer and reader of the step directories ``repro/ckpt/checkpoint.py``
+writes: ``<dir>/step_<N:010d>/manifest.json``
 plus one ``leaf_<i:05d>.p<proc>.npy`` per flattened leaf, ``<dir>/LATEST``
 naming the newest step. The leaf order is JAX's flatten order, which the
 caller reconstructs (``serving.engine._jax_leaf_names``); this module writes
@@ -11,6 +11,9 @@ Saving is crash-safe at every point: the leaves and the manifest go to
 ``LATEST`` is replaced through a rename too; the oldest steps beyond
 ``keep`` are removed. A crash mid-write leaves only a ``.tmp`` directory,
 which readers ignore and the next save of that step replaces.
+``CheckpointManager.restore`` reads the newest complete step back into a
+template's dtypes and devices, so a directory either package wrote resumes
+in the other.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import shutil
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 
 class CheckpointManager:
@@ -32,11 +36,14 @@ class CheckpointManager:
         self.dir.mkdir(parents=True, exist_ok=True)
         self.keep = keep
 
-    def save(self, step: int, leaves: Sequence[np.ndarray], extra: Optional[dict] = None,
+    def save(self, step: int, leaves: Sequence, extra: Optional[dict] = None,
              treedef: str = "") -> pathlib.Path:
-        """Write ``leaves`` (numpy arrays, in flatten order) and ``extra``
-        (JSON) as step ``step``; returns the step directory."""
-        leaves = [np.asarray(leaf) for leaf in leaves]
+        """Write ``leaves`` (arrays or tensors on any device, in flatten
+        order) and ``extra`` (JSON) as step ``step``; returns the step
+        directory."""
+        leaves = [np.asarray(leaf.detach().cpu().numpy()
+                             if isinstance(leaf, torch.Tensor) else leaf, order="C")
+                  for leaf in leaves]
         tmp = self.dir / f"step_{step:010d}.tmp"
         final = self.dir / f"step_{step:010d}"
         if tmp.exists():
@@ -59,9 +66,40 @@ class CheckpointManager:
         latest = self.dir / "LATEST.tmp"
         latest.write_text(str(step))
         os.rename(latest, self.dir / "LATEST")
-        for s in all_steps(self.dir)[:-self.keep]:
+        for s in self.all_steps()[:-self.keep]:
             shutil.rmtree(self.dir / f"step_{s:010d}", ignore_errors=True)
         return final
+
+    def all_steps(self) -> list:
+        return all_steps(self.dir)
+
+    def latest_step(self) -> Optional[int]:
+        return latest_step(self.dir)
+
+    def restore(self, template: Sequence, step: Optional[int] = None):
+        """(leaves, step, extra) of ``step`` (default: the newest complete
+        one), or (None, None, None) when there is none. ``template`` lists
+        one leaf per saved leaf, in flatten order: each comes back in its
+        template leaf's dtype, a tensor on the template tensor's device or
+        a numpy array for an array, and must have its shape."""
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            return None, None, None
+        step_dir, meta = read_manifest(self.dir, step)
+        if len(template) != meta["n_leaves"]:
+            raise ValueError(f"checkpoint has {meta['n_leaves']} leaves, template has "
+                             f"{len(template)}")
+        leaves = []
+        for i, (tl, arr) in enumerate(zip(template, load_leaves(step_dir, meta))):
+            if tuple(np.shape(tl)) != arr.shape:
+                raise ValueError(f"leaf {i}: checkpoint holds {arr.shape}, template "
+                                 f"{tuple(np.shape(tl))}")
+            if isinstance(tl, torch.Tensor):
+                leaves.append(torch.from_numpy(np.asarray(arr, order="C")).to(
+                    device=tl.device, dtype=tl.dtype))
+            else:
+                leaves.append(arr.astype(np.asarray(tl).dtype))
+        return leaves, step, meta["extra"]
 
 
 def all_steps(directory) -> list:

@@ -1,6 +1,8 @@
-"""Exact kNN ground truth (paper §2.1); counterpart of
-``repro/core/ground_truth.py:exact_knn``. Batched brute force on the device,
-used for evaluation and for the probing-model labels on a training subset."""
+"""Exact kNN ground truth and kNN partition distributions (paper §2.1);
+counterpart of ``repro/core/ground_truth.py``. ``exact_knn`` is batched brute
+force on the device, used for evaluation and for the probing-model labels on
+a training subset; the distributions are numpy on the host, as in the
+reference."""
 from __future__ import annotations
 
 import numpy as np
@@ -57,3 +59,35 @@ def drop_self(dists: np.ndarray, ids: np.ndarray, k: int):
     cols[ok.sum(1) < k] = np.arange(1, k + 1)  # degenerate duplicates
     return (np.take_along_axis(dists, cols, 1).astype(np.float32),
             np.take_along_axis(ids, cols, 1).astype(np.int32))
+
+
+def knn_count_distribution(gt_ids: np.ndarray, assign: np.ndarray, n_partitions: int) -> np.ndarray:
+    """n^q (paper def. 1): per-query count of GT kNN in each partition. [Q, B]."""
+    part = assign[gt_ids]  # [Q, k]
+    out = np.zeros((gt_ids.shape[0], n_partitions), np.int32)
+    rows = np.repeat(np.arange(gt_ids.shape[0]), gt_ids.shape[1])
+    np.add.at(out, (rows, part.reshape(-1)), 1)
+    return out
+
+
+def knn_partition_labels(gt_ids: np.ndarray, assign: np.ndarray, n_partitions: int) -> np.ndarray:
+    """p^q: binary mask over partitions that contain ≥1 true kNN. [Q, B] f32."""
+    return (knn_count_distribution(gt_ids, assign, n_partitions) > 0).astype(np.float32)
+
+
+def optimal_nprobe(labels: np.ndarray) -> np.ndarray:
+    """(nprobe^q)* = number of kNN partitions."""
+    return labels.sum(-1).astype(np.int32)
+
+
+def nprobe_dist(gt_ids: np.ndarray, assign: np.ndarray, q: np.ndarray, centroids: np.ndarray) -> np.ndarray:
+    """nprobe*_dist (paper §2.2): max centroid-distance-rank over kNN partitions —
+    how many nearest-centroid probes IVF needs to cover all kNN."""
+    d2 = (
+        np.sum(q * q, -1, keepdims=True)
+        - 2.0 * q @ centroids.T
+        + np.sum(centroids * centroids, -1)[None, :]
+    )
+    rank = np.argsort(np.argsort(d2, -1), -1)  # rank of each partition per query
+    part = assign[gt_ids]  # [Q, k]
+    return rank[np.arange(len(q))[:, None], part].max(1).astype(np.int32) + 1

@@ -87,6 +87,12 @@ class ProbingModel(nn.Module):
         best = F.one_hot(p.argmax(-1), p.shape[-1]).bool()
         return (p > sigma) | best, p
 
+    def predicted_nprobe(self, q, cent_dist, sigma: float = 0.5) -> torch.Tensor:
+        """Probes per query: ``predict_probe_mask``'s mask summed over the
+        partitions."""
+        mask, _ = self.predict_probe_mask(q, cent_dist, sigma)
+        return mask.sum(-1)
+
 
 def bce_loss(model: ProbingModel, q, cent_dist, labels, *, pos_weight: float = 1.0):
     """Paper eq. 3 (optionally positive-class weighted: labels are sparse)."""

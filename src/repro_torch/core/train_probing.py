@@ -4,6 +4,11 @@
 The batch order follows the reference exactly (``np.random.default_rng(0)``
 permutations, with the evaluation subsample drawn from the same stream), so
 from the same initial parameters both sides see the same batches.
+
+``train_state`` and ``make_train_step`` give the model and its AdamW to
+``train.trainer.Trainer`` as the reference's examples give theirs: the state
+in ``jax.tree.flatten((params, OptState(step, mu, nu)))`` order and layout,
+so a checkpoint either package writes resumes in the other.
 """
 from __future__ import annotations
 
@@ -89,3 +94,56 @@ def train_probing_model(x_train, labels, centroids, *, epochs: int = 10,
                           f"hit={float(hit):.3f} nprobe={float(npb):.2f}")
             it += 1
     return model, tlog._replace(seconds=time.time() - t0)
+
+
+_GROUPS = ("phi_i", "phi_p", "phi_q")   # the params dict's keys, sorted as JAX flattens
+
+
+def _jax_order(model: probing.ProbingModel) -> list:
+    """(name, tensor) of every parameter in JAX's flatten order of the
+    params dict (groups sorted; in each layer "b" before "w")."""
+    return [(f"{g}/{i}/{leaf}", layer.bias if leaf == "b" else layer.weight)
+            for g in _GROUPS for i, layer in enumerate(getattr(model, g))
+            for leaf in ("b", "w")]
+
+
+def state_leaf_names(model: probing.ProbingModel) -> list:
+    """Leaf names of ``train_state``, in order: the params, "opt/step",
+    then the params' "opt/mu/…" and "opt/nu/…"."""
+    names = [n for n, _ in _jax_order(model)]
+    return ([f"params/{n}" for n in names] + ["opt/step"]
+            + [f"opt/mu/{n}" for n in names] + [f"opt/nu/{n}" for n in names])
+
+
+def train_state(model: probing.ProbingModel, tx: opt.AdamW) -> list:
+    """The live state of ``model`` and its optimizer ``tx`` as a flat list in
+    ``state_leaf_names`` order: each weight as the reference's ``w`` [in, out]
+    (a transposed view), each bias as ``b``, the step count, then the
+    moments in the same layout. Writing into a leaf writes into the model
+    or the optimizer."""
+    step, mu, nu = tx.state()
+    at = {id(p): i for i, p in enumerate(tx.params)}
+
+    def jax_layout(t, p):
+        return t.T if p.ndim == 2 else t
+
+    params = [p for _, p in _jax_order(model)]
+    return ([jax_layout(p, p) for p in params] + [step]
+            + [jax_layout(mu[at[id(p)]], p) for p in params]
+            + [jax_layout(nu[at[id(p)]], p) for p in params])
+
+
+def make_train_step(model: probing.ProbingModel, tx: opt.AdamW):
+    """The reference example's step as a ``Trainer`` step function: BCE loss,
+    gradients clipped to global norm 1, one AdamW update, all in place on
+    ``model`` and ``tx`` (the state it is handed is their ``train_state``,
+    returned as it is). Metrics: loss and grad_norm."""
+    params = list(tx.params)
+
+    def step_fn(state, batch):
+        loss = probing.bce_loss(model, batch["q"], batch["cent_dist"], batch["labels"])
+        grads, gnorm = opt.clip_by_global_norm(torch.autograd.grad(loss, params), 1.0)
+        tx.update(grads)
+        return state, {"loss": loss.detach(), "grad_norm": gnorm}
+
+    return step_fn

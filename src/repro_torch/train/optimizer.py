@@ -29,20 +29,31 @@ def clip_by_global_norm(grads: list, max_norm: float):
 
 
 class AdamW:
-    """``update(grads)`` applies one step to ``params`` in place."""
+    """``update(grads)`` applies one step to ``params`` in place. Its state
+    is JAX's ``OptState(step, mu, nu)``: a [] int32 step count (on the CPU)
+    and f32 moments shaped as the parameters, which ``state`` returns."""
 
     def __init__(self, params, lr: float | Callable = 1e-3, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 0.0):
         self.params = list(params)
         self.lr_fn = lr if callable(lr) else (lambda _: lr)
         self.b1, self.b2, self.eps, self.weight_decay = b1, b2, eps, weight_decay
-        self.step = 0
+        self._step = torch.zeros((), dtype=torch.int32)
         self.mu = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
         self.nu = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
 
+    @property
+    def step(self) -> int:
+        return int(self._step)
+
+    def state(self):
+        """(step, mu, nu): the live tensors, which ``update`` changes in
+        place; copying values into them sets the optimizer's state."""
+        return self._step, self.mu, self.nu
+
     @torch.no_grad()
     def update(self, grads) -> None:
-        self.step += 1
+        self._step += 1
         stepf = torch.tensor(float(self.step), dtype=torch.float32)
         bc1 = float(1 - torch.tensor(self.b1, dtype=torch.float32) ** stepf)
         bc2 = float(1 - torch.tensor(self.b2, dtype=torch.float32) ** stepf)

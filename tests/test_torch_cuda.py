@@ -630,3 +630,34 @@ def test_cluster_kernels_match_plain(cuda_device):
         rt.assert_topk_match(got.dists, got.ids, ref.dists, ref.ids, atol, what=tier)
         assert got.stats.impl == "cuda" and ref.stats.impl == "ref"
         assert (got.overflow, got.stats.dedup_hits) == (ref.overflow, ref.stats.dedup_hits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_batch", [128, 5])
+def test_partition_topk_runs_the_qbuf_kernel_over_a_dense_dispatch(cuda_device, q_batch):
+    """The evaluation engine's within-partition top-k on a store on the card
+    launches l2_topk_qbuf once a block of queries and matches the plain
+    version on the CPU (short and empty partitions, replicated ids); every
+    q_batch gives the same bits."""
+    import numpy as np
+
+    from repro_torch.core import partitions, retrieval
+
+    rng = np.random.default_rng(9)
+    x = rng.normal(size=(600, 24)).astype(np.float32)
+    q = rng.normal(size=(37, 24)).astype(np.float32)
+    assign = np.where(np.arange(600) < 3, 6, np.arange(600) % 6).astype(np.int32)
+    ids = np.arange(600, dtype=np.int32)
+    extra = (x[:50], ids[:50], ((assign[:50] + 1) % 6).astype(np.int32))
+    cents = rng.normal(size=(8, 24)).astype(np.float32)            # partition 7 stays empty
+    store = partitions.build_store(x, ids, assign, cents, extra=extra, device=cuda_device)
+    cpu = partitions.build_store(x, ids, assign, cents, extra=extra, device="cpu")
+    before = l2_mod.launches
+    got = retrieval.partition_topk(store, q, 16, q_batch=q_batch)
+    assert l2_mod.launches == before + -(-len(q) // q_batch)
+    want = retrieval.partition_topk(cpu, q, 16)
+    rt.assert_topk_match(got.dists, got.ids, want.dists, want.ids, rt.l2_atol(q, x, ids))
+    assert (got.dists[..., 1:] >= got.dists[..., :-1]).all()
+    assert np.isinf(got.dists[:, 6, 3:]).all() and (got.ids[:, 7] == -1).all()
+    one = retrieval.partition_topk(store, q, 16, q_batch=len(q))
+    assert np.array_equal(one.dists, got.dists) and np.array_equal(one.ids, got.ids)

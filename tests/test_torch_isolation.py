@@ -27,7 +27,9 @@ def test_no_module_imports_jax_or_the_jax_package():
     files = sorted(PKG.rglob("*.py"))
     assert len(files) > 10
     for part in ("launch/mesh.py", "launch/serve.py", "distributed/fault.py",
-                 "serving/cluster.py"):
+                 "serving/cluster.py", "core/retrieval.py", "core/baselines.py",
+                 "data/pipeline.py", "train/trainer.py", "examples/serve_ann.py",
+                 "examples/quickstart.py", "examples/train_probing_model.py"):
         assert PKG / part in files
     bad = [(str(f.relative_to(PKG)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]
@@ -40,7 +42,10 @@ def test_importing_the_port_leaves_jax_unloaded():
             "repro_torch.serving.quantized, repro_torch.core.pq, repro_torch.data.synthetic, "
             "repro_torch.serving.frontend, repro_torch.serving.mutable, repro_torch.obs, "
             "repro_torch.utils.clock, repro_torch.ckpt.checkpoint, repro_torch.launch.mesh, "
-            "repro_torch.launch.serve, repro_torch.distributed, repro_torch.serving.cluster; "
+            "repro_torch.launch.serve, repro_torch.distributed, repro_torch.serving.cluster, "
+            "repro_torch.core.retrieval, repro_torch.core.baselines, repro_torch.data.pipeline, "
+            "repro_torch.train.trainer, repro_torch.examples.serve_ann, "
+            "repro_torch.examples.quickstart, repro_torch.examples.train_probing_model; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(PKG.parent))
@@ -48,6 +53,7 @@ def test_importing_the_port_leaves_jax_unloaded():
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
+    from repro_torch.examples import quickstart, serve_ann, train_probing_model
     from repro_torch.launch import serve
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.serving.api import BuildConfig
@@ -69,11 +75,15 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         LiraCluster.build(x, BuildConfig(n_partitions=4, k=5), ClusterConfig(n_shards=2))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main([])
+    for example in (quickstart, serve_ann, train_probing_model):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            example.main()
     assert resolve_device("cpu") == torch.device("cpu")
     assert make_test_mesh(model=2, device="cpu").devices == (torch.device("cpu"),) * 2
 
 
 def _entry_points():
+    from repro_torch.core import baselines
     from repro_torch.core import ground_truth as gt
     from repro_torch.core import probing
     from repro_torch.core.partitions import build_store
@@ -91,11 +101,15 @@ def _entry_points():
             x, np.zeros((32, 4), np.float32), x[:4], epochs=1, batch=16),
         "params_from_jax": lambda x: probing.params_from_jax(tree),
         "ProbingModel": lambda x: probing.ProbingModel(probing.ProbingConfig(dim=8, n_partitions=4)),
+        "build_ivf": lambda x: baselines.build_ivf(x, 4, generator=torch.Generator()),
+        "build_bliss": lambda x: baselines.build_bliss(x, 4, n_groups=1, reparts=1, epochs=1,
+                                                       generator=torch.Generator()),
     }
 
 
 @pytest.mark.parametrize("entry", ["exact_knn", "build_store", "train_probing_model",
-                                   "params_from_jax", "ProbingModel"])
+                                   "params_from_jax", "ProbingModel", "build_ivf",
+                                   "build_bliss"])
 def test_entry_point_on_arrays_without_device_raises_without_cuda(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     x, entry_points = _entry_points()
@@ -111,3 +125,6 @@ def test_entry_points_follow_the_tensors_they_are_given(monkeypatch):
     assert d.shape == i.shape == (4, 3) and (i[:, 0] == np.arange(4)).all()
     store = entry_points["build_store"](torch.from_numpy(x))
     assert store.vectors.device.type == "cpu" and int(store.counts.sum()) == 32
+    from repro_torch.core import retrieval
+    assert retrieval.partition_topk(store, x[:3], 2).dists.shape == (3, 4, 2)
+    assert entry_points["build_ivf"](torch.from_numpy(x)).vectors.device.type == "cpu"
