@@ -168,11 +168,35 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                100; a run failed after step 250's update and resumed from
                step 200 ends equal bit for bit to an uninterrupted run;
                steps/s;
- 19. examples — last: python -m repro_torch.examples.serve_ann (recall@10 of
+ 19. examples — python -m repro_torch.examples.serve_ann (recall@10 of
                both tiers ≥ 0.65 and within 0.02), .quickstart (LIRA's cmp at
                most IVF's at matched recall) and .train_probing_model twice
                (the second run resumes at step 600), each a subprocess on
                the card at the example's own sizes.
+ 20. lm      — last, on a freed card: the LM substrate's serving path
+               through build_bundle(get_config(...), make_test_mesh(1, 1)):
+               (a) stablelm-3b whole (32 layers, d 2560, 32 heads x 80, d_ff
+               6912, vocab 50304, bf16) from a seeded generator: prefill of
+               [8, 2048] random tokens, its cache copied into a 4,096-position
+               one, 64 greedy decode steps from position 2048, each run
+               once untimed and once timed; prefill ms and tokens/s beside
+               its bound by operations (every KV block counted) at the bf16
+               peak, decode ms a step and tokens/s beside its bound by bytes
+               (weights and the whole cache), peak device memory; one
+               layer's attention timed through the block scan and through
+               scaled_dot_product_attention (a reference only); (b) the
+               same width at 2 layers in f32 on the card and the CPU (the
+               same parameters): prefill [2, 256] logits within 1e-3, 8
+               decode steps equal token for token; (c) on the card each of
+               those decode tokens equal to the argmax of a prefill over the
+               prompt and the tokens before it where the top-2 margin is
+               wider than 2e-3 (the rest counted); (d) moonshot-v1-16b-a3b's
+               width (64 experts top-6 + 2 shared) at 4 layers: prefill
+               [4, 2048], 32 decode steps, timed as (a), with the MoE
+               capacity and dropped (token, expert) pairs, and (b)'s gate at
+               2 layers in f32 (prefill [2, 64], 4 steps).
+Phase 20 launches none of the kernels: the LM's attention is the reference's
+plain block scan, and no Pallas kernel lies on its path.
 Phases 7-12, 15-16 and 17 zero the launch counters just before each path and
 read them just after. Every matmul runs in full f32 (TF32 off for matmul and cuDNN),
 so the plain versions are exact oracles.
@@ -2066,6 +2090,385 @@ def examples_phase() -> None:
         f"{cmp_}, train_probing_model resumed at step 600")
 
 
+# ---------------------------------------------------------------- the LM substrate
+
+LM_DENSE, LM_MOE = "stablelm-3b", "moonshot-v1-16b-a3b"
+LM_PREFILL, LM_CACHE, LM_STEPS = (8, 2048), 4096, 64               # (a)
+LM_GATE_LAYERS, LM_GATE_PREFILL, LM_GATE_STEPS = 2, (2, 256), 8    # (b), (c)
+LM_MOE_LAYERS, LM_MOE_PREFILL, LM_MOE_STEPS = 4, (4, 2048), 32     # (d)
+LM_MOE_GATE_PREFILL, LM_MOE_GATE_STEPS = (2, 64), 4
+# card against CPU (f32, TF32 off: the same math summed in another order),
+# and a decode step's logits against a prefill's on the card; the CPU tests
+# hold the CPU path against JAX at SMOKE width to 5e-5
+LM_F32_ATOL = 1e-3
+
+
+def lm_configs():
+    """(a)'s and (d)'s configurations: stablelm-3b whole, moonshot-v1-16b-a3b
+    at its full width with its depth cut to LM_MOE_LAYERS (48 layers, 58 GB
+    of bf16 weights, fill the card)."""
+    from repro_torch.configs import get_config
+
+    return (get_config(LM_DENSE)[0],
+            dataclasses.replace(get_config(LM_MOE)[0], n_layers=LM_MOE_LAYERS))
+
+
+def lm_weight_bytes(cfg, experts_read=None) -> float:
+    """Weight bytes a decode step reads: every layer weight, the unembed and
+    ln_f, the embed rows of the batch only (counted apart), and of the MoE
+    experts ``experts_read`` (distinct routed experts summed over layers) or
+    all of them."""
+    from repro_torch.models import transformer as ttr
+
+    specs = ttr.param_specs(cfg)
+    leaves = {**{k: v for k, v in specs.items() if k not in ("layers", "embed")},
+              **specs["layers"]}
+    n = 0
+    for name, spec in leaves.items():
+        per = spec.numel()
+        if name in ("wi_e", "wg_e", "wo_e") and experts_read is not None:
+            per = per // (cfg.n_layers * cfg.moe.n_experts) * experts_read
+        n += per
+    return n * (2 if cfg.dtype == "bfloat16" else 4)
+
+
+def lm_prefill_flops(cfg, b: int, s: int, kept_pairs=None, causal: bool = False) -> float:
+    """What a prefill of [b, s] computes: every token's projections and
+    FFN (MoE: the router, the shared experts and ``kept_pairs`` routed
+    (token, expert) pairs summed over layers, else top_k a token), the
+    attention of every KV block (the scan computes the masked ones too: s × s
+    scores a sequence and head, and as many P·V products; with ``causal``
+    only the s (s + 1) / 2 pairs the mask keeps) and the unembed of the last
+    position. Multiply-adds count two."""
+    d, t = cfg.d_model, b * s
+    proj = d * cfg.n_heads * cfg.head_dim * 2 + d * cfg.n_kv_heads * cfg.head_dim * 2
+    pairs_a_head = s * (s + 1) // 2 if causal else s * s
+    attn = 4 * b * cfg.n_heads * pairs_a_head * cfg.head_dim
+    if cfg.moe is None:
+        ffn = cfg.n_layers * 2 * t * 3 * d * cfg.d_ff
+    else:
+        moe = cfg.moe
+        pairs = kept_pairs if kept_pairs is not None else cfg.n_layers * t * moe.top_k
+        ffn = (cfg.n_layers * 2 * t * (3 * d * moe.d_ff_expert * moe.n_shared + d * moe.n_experts)
+               + 2 * pairs * 3 * d * moe.d_ff_expert)
+    return cfg.n_layers * (2 * t * proj + attn) + ffn + 2 * b * d * cfg.vocab
+
+
+def lm_profile(fn, top: int = 6):
+    """One call of ``fn`` under torch.profiler: (wall ms, device busy ms,
+    [(op, device ms, calls)] of the ``top`` operators by the device time of
+    the kernels each launched itself). Busy is the kernels' time summed:
+    an operator's device time is its kernels', so only one of the two is
+    summed."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    events = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in events if e.device_type == DeviceType.CUDA) / 1e3
+    ops = [e for e in events if e.device_type == DeviceType.CPU and e.self_device_time_total > 0]
+    ops.sort(key=lambda e: -e.self_device_time_total)
+    return wall, busy, [(e.key, e.self_device_time_total / 1e3, e.count) for e in ops[:top]]
+
+
+def lm_run(cfg, model, prefill_shape, steps: int, cache_len: int, dev, gen):
+    """Prefill ``prefill_shape`` random tokens from ``gen``, copy the cache
+    into one of ``cache_len`` positions, then greedy decode: once untimed
+    (warm-up, routing counted), then timed from the same position.
+    Returns the timings and counts; the outputs are checked here."""
+    import torch
+
+    from repro_torch.models import build_bundle
+    from repro_torch.models import layers as lm_layers
+    from repro_torch.models.api import ShapeSpec
+    from repro_torch.launch.mesh import make_test_mesh
+
+    b, s = prefill_shape
+    bundle = build_bundle(cfg, make_test_mesh(1, 1, device=dev))
+    prefill = bundle.step(ShapeSpec("prefill", "prefill", {"seq_len": s, "global_batch": b})).fn
+    decode = bundle.step(ShapeSpec("decode", "decode",
+                                   {"seq_len": cache_len, "global_batch": b})).fn
+    toks = torch.randint(1, cfg.vocab, (b, s), generator=gen, device=gen.device).to(dev)
+
+    # the MoE dispatch's capacity, kept pairs and routed experts, counted in
+    # the untimed runs only (each count waits for the card)
+    routing = []
+    dispatch = lm_layers.moe_dispatch_local
+
+    def counted(x_all, router_w, e0, e_loc, top_k, capacity):
+        out = dispatch(x_all, router_w, e0, e_loc, top_k, capacity)
+        kept = out[2] < x_all.shape[0]
+        routing.append((x_all.shape[0], capacity, int(kept.sum()), int(kept.any(-1).sum())))
+        return out
+
+    lm_layers.moe_dispatch_local = counted
+    try:
+        logits, cache = prefill(model, toks)                    # warm-up, counted
+        prefill_routing, routing[:] = list(routing), []
+        shape = (cfg.n_layers, b, cache_len, cfg.n_kv_heads, cfg.head_dim)
+        dcache = {n: torch.zeros(shape, dtype=c.dtype, device=dev) for n, c in cache.items()}
+        for n in cache:
+            dcache[n][:, :, :s] = cache[n]
+        del cache
+        first = logits.argmax(-1).to(torch.int32)[:, None]
+        tok, warm = first, []
+        for i in range(steps):
+            nxt, dcache = decode(model, dcache, tok, s + i)
+            warm.append(nxt)
+            tok = nxt[:, None]
+    finally:
+        lm_layers.moe_dispatch_local = dispatch
+    decode_routing = list(routing)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits2, cache = prefill(model, toks)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    del cache
+    if not bool(torch.isfinite(logits).all()) or logits.shape != (b, cfg.vocab):
+        raise AssertionError(f"lm prefill logits: shape {tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    tok, step_s, timed = first, [], []
+    for i in range(steps):
+        t1 = time.perf_counter()
+        nxt, dcache = decode(model, dcache, tok, s + i)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
+        timed.append(nxt)
+        tok = nxt[:, None]
+    warm, timed = torch.stack(warm), torch.stack(timed)
+    if not bool(((timed >= 0) & (timed < cfg.vocab)).all()):
+        raise AssertionError("lm decode: a token outside the vocabulary")
+    # the path adds in a fixed order (no atomics): a rerun gives the same bits
+    rerun_err = float((logits2 - logits).abs().max())
+    if not torch.equal(warm, timed) or rerun_err != 0:
+        raise AssertionError(
+            f"lm {cfg.arch}: a rerun differs: decode tokens equal on "
+            f"{100 * float((warm == timed).float().mean()):.1f}%, prefill logits by {rerun_err}")
+    # where the time goes: one prefill and one decode step (at position s
+    # again: the same write) under the profiler
+    profiles = {"prefill": lm_profile(lambda: prefill(model, toks)),
+                "decode step": lm_profile(lambda: decode(model, dcache, first, s))}
+    return dict(prefill_s=prefill_s, step_s=step_s, profiles=profiles,
+                prefill_routing=prefill_routing,
+                decode_routing=decode_routing, same_tokens=float((warm == timed).float().mean()),
+                logits_rerun_err=rerun_err)
+
+
+def lm_report(what, cfg, prefill_shape, steps: int, cache_len: int, run: dict, smi) -> dict:
+    """Log one configuration's times beside their bounds: prefill by its
+    operations at the dense bf16 peak, decode by the bytes it must read
+    (weights, the whole cache) at the memory rate. Beside each, the bound of
+    the work the function needs rather than what the reference's algorithm
+    does: the prefill's causal pairs only, the decode's valid cache prefix
+    (positions ≤ pos, averaged over the steps)."""
+    import numpy as np
+
+    b, s = prefill_shape
+    kept = sum(r[2] for r in run["prefill_routing"]) or None
+    flops = lm_prefill_flops(cfg, b, s, kept)
+    prefill_bound = flops / PEAK_OPS[cfg.dtype]
+    causal_flops = lm_prefill_flops(cfg, b, s, kept, causal=True)
+    experts = None
+    if cfg.moe is not None:
+        # routed experts a step, summed over layers, averaged over the steps
+        per_step = [r[3] for r in run["decode_routing"]]
+        experts = sum(per_step) / steps
+    size = 2 if cfg.dtype == "bfloat16" else 4
+    cache_bytes = 2 * cfg.n_layers * b * cache_len * cfg.n_kv_heads * cfg.head_dim * size
+    decode_bytes = lm_weight_bytes(cfg, experts) + cache_bytes + b * cfg.d_model * size
+    decode_bound = decode_bytes / HBM_BYTES_PER_S
+    valid = s + (steps + 1) / 2                  # mean of pos + 1 over the steps
+    prefix_bytes = decode_bytes - cache_bytes * (1 - valid / cache_len)
+    step = float(np.median(run["step_s"]))
+    out = dict(prefill_ms=1e3 * run["prefill_s"], prefill_tok_s=b * s / run["prefill_s"],
+               prefill_bound_ms=1e3 * prefill_bound, prefill_tflop=flops / 1e12,
+               prefill_causal_bound_ms=1e3 * causal_flops / PEAK_OPS[cfg.dtype],
+               prefill_causal_tflop=causal_flops / 1e12,
+               decode_step_ms=1e3 * step, decode_mean_ms=1e3 * float(np.mean(run["step_s"])),
+               decode_tok_s=b / step, decode_bound_ms=1e3 * decode_bound,
+               decode_gb=decode_bytes / 1e9,
+               decode_prefix_bound_ms=1e3 * prefix_bytes / HBM_BYTES_PER_S,
+               decode_prefix_gb=prefix_bytes / 1e9)
+    log(f"{what} prefill [{b}, {s}]: {out['prefill_ms']:.1f} ms, {out['prefill_tok_s']:.0f} "
+        f"tokens/s; bound {out['prefill_bound_ms']:.1f} ms by operations "
+        f"({out['prefill_tflop']:.2f} TFLOP at {PEAK_OPS[cfg.dtype] / 1e12:.0f} TFLOP/s, every "
+        f"KV block counted), causal bound {out['prefill_causal_bound_ms']:.1f} ms "
+        f"({out['prefill_causal_tflop']:.2f} TFLOP, the kept pairs only); {smi}")
+    log(f"{what} decode {steps} steps from position {s} in a {cache_len}-position cache: "
+        f"median {out['decode_step_ms']:.2f} ms a step (mean {out['decode_mean_ms']:.2f}), "
+        f"{out['decode_tok_s']:.0f} tokens/s; bound {out['decode_bound_ms']:.2f} ms by bytes "
+        f"({out['decode_gb']:.2f} GB: weights, the whole cache, at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s), valid-prefix bound "
+        f"{out['decode_prefix_bound_ms']:.2f} ms ({out['decode_prefix_gb']:.2f} GB: weights, "
+        f"positions <= pos); the timed run's tokens equal the warm-up's on "
+        f"{100 * run['same_tokens']:.1f}%; {smi}")
+    for name, (wall, busy, ops) in run["profiles"].items():
+        log(f"{what} profile of one {name}: device busy {busy:.2f} of {wall:.2f} ms of wall "
+            f"({100 * busy / wall:.1f}%); by op: "
+            + ", ".join(f"{op} {ms:.2f} ms x{n}" for op, ms, n in ops))
+        out[f"{name.split()[0]}_busy_ms"] = busy
+    if cfg.moe is not None:
+        pre = run["prefill_routing"]
+        dec = run["decode_routing"]
+        log(f"{what} MoE prefill: {pre[0][0]} tokens a layer, capacity {pre[0][1]}, "
+            f"kept pairs a layer {[r[2] for r in pre]} of {pre[0][0] * cfg.moe.top_k} "
+            f"(dropped {sum(pre[0][0] * cfg.moe.top_k - r[2] for r in pre)}); decode: "
+            f"capacity {dec[0][1]}, dropped {sum(r[0] * cfg.moe.top_k - r[2] for r in dec)} "
+            f"of {sum(r[0] * cfg.moe.top_k for r in dec)} pairs over {steps} steps, "
+            f"{experts / cfg.n_layers:.1f} of {cfg.moe.n_experts} experts routed a layer "
+            f"a step")
+        out.update(capacity=pre[0][1], prefill_dropped=sum(pre[0][0] * cfg.moe.top_k - r[2]
+                                                           for r in pre),
+                   decode_dropped=sum(r[0] * cfg.moe.top_k - r[2] for r in dec))
+    return out
+
+
+def lm_gate(cfg, prefill_shape, steps: int, dev, what, *, against_prefill: bool) -> dict:
+    """(b) The same f32 parameters on the card and on the CPU: prefill
+    logits within LM_F32_ATOL and the same token at every greedy decode step
+    (the card fed the CPU's tokens). (c) with ``against_prefill``: each
+    decode token on the card equal to the argmax of a card prefill over the
+    prompt and the tokens before it, wherever that prefill's top-2 margin
+    exceeds 2 · LM_F32_ATOL (the others counted)."""
+    import copy
+
+    import torch
+
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import transformer as ttr
+
+    t0 = time.perf_counter()
+    b, s = prefill_shape
+    card = ttr.init_params(cfg, torch.Generator(device=dev).manual_seed(1), dev)
+    cpu = copy.deepcopy(card).to("cpu")
+    toks = torch.randint(1, cfg.vocab, (b, s), generator=torch.Generator().manual_seed(2))
+    shape = (cfg.n_layers, b, s + steps, cfg.n_kv_heads, cfg.head_dim)
+    sides = {}
+    for side, model, d in (("cpu", cpu, "cpu"), ("card", card, dev)):
+        mesh = make_test_mesh(1, 1, device=d)
+        logits, cache = ttr.make_prefill_step(cfg, mesh)(model, toks.to(d))
+        full = {n: torch.zeros(shape, dtype=c.dtype, device=d) for n, c in cache.items()}
+        for n in cache:
+            full[n][:, :, :s] = cache[n]
+        sides[side] = [logits.cpu(), full, ttr.make_decode_step(cfg, mesh, b, s + steps), model, d]
+    err = float((sides["card"][0] - sides["cpu"][0]).abs().max())
+    if err > LM_F32_ATOL:
+        raise AssertionError(f"{what}: card prefill logits differ from the CPU's by {err}")
+    tok, chain = sides["cpu"][0].argmax(-1).to(torch.int32)[:, None], []
+    for i in range(steps):
+        got = {}
+        for side, (_, cache, decode, model, d) in sides.items():
+            got[side], _ = decode(model, cache, tok.to(d), s + i)
+        if not torch.equal(got["card"].cpu(), got["cpu"]):
+            raise AssertionError(f"{what}: decode step {i}: card {got['card'].tolist()} != "
+                                 f"cpu {got['cpu'].tolist()}")
+        chain.append(tok)
+        tok = got["cpu"][:, None]
+    chain.append(tok)
+    out = dict(logits_err=err, steps=steps, batch=b)
+    log(f"{what}: card = CPU, prefill [{b}, {s}] logits max abs err {err:.3g} (tolerance "
+        f"{LM_F32_ATOL}), {steps} greedy decode steps equal token for token "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if against_prefill:
+        # prompt + the tokens decoded before step i -> the argmax must be
+        # step i's token (chain[i + 1])
+        prefill = ttr.make_prefill_step(cfg, make_test_mesh(1, 1, device=dev))
+        checked = unsure = 0
+        for i in range(1, steps + 1):
+            ext = torch.cat([toks] + [t.cpu().long() for t in chain[:i]], 1).to(dev)
+            logits, _ = prefill(card, ext)
+            top2 = logits.topk(2, -1).values
+            clear = (top2[:, 0] - top2[:, 1]) > 2 * LM_F32_ATOL
+            agree = logits.argmax(-1).cpu() == chain[i][:, 0].cpu().long()
+            if not bool(agree[clear.cpu()].all()):
+                raise AssertionError(f"{what}: decode step {i - 1} differs from a prefill of "
+                                     f"{s + i} tokens")
+            checked += int(clear.sum())
+            unsure += int((~clear).sum())
+        log(f"{what}: prefill = decode on the card: {checked} decoded tokens equal a prefill's "
+            f"argmax, {unsure} left unchecked (top-2 margin within {2 * LM_F32_ATOL})")
+        out.update(checked=checked, unsure=unsure)
+    return out
+
+
+def lm_phase(smi, dev="cuda") -> dict:
+    """20. The LM substrate's serving path on the card: (a) stablelm-3b
+    whole, timed; (b) card = CPU and (c) prefill = decode at its width and 2
+    layers in f32; (d) moonshot-v1-16b-a3b's width at LM_MOE_LAYERS layers,
+    timed, and its card = CPU gate at 2 layers."""
+    import torch
+
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import build_bundle
+    from repro_torch.models import layers as lm_layers
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    dense, moe = lm_configs()
+    found = {}
+    for what, cfg, pshape, steps, cache_len in (
+            ("lm     dense", dense, LM_PREFILL, LM_STEPS, LM_CACHE),
+            ("lm     moe", moe, LM_MOE_PREFILL, LM_MOE_STEPS, LM_MOE_PREFILL[1] + LM_MOE_STEPS)):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(0)
+        model = build_bundle(cfg, make_test_mesh(1, 1, device=dev)).init(gen)
+        torch.cuda.synchronize()
+        n = sum(p.numel() for p in model.parameters())
+        if n != cfg.param_count:
+            raise AssertionError(f"{what}: {n} parameters, the config counts {cfg.param_count}")
+        nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+        log(f"{what} {cfg.arch}: {cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads x "
+            f"{cfg.head_dim} (kv {cfg.n_kv_heads}), vocab {cfg.vocab}, {cfg.dtype}: "
+            f"{n / 1e9:.3f} B parameters, {nbytes / 1e9:.2f} GB, drawn on the card in "
+            f"{time.perf_counter() - t0:.1f} s")
+        run = lm_run(cfg, model, pshape, steps, cache_len, dev, gen)
+        res = lm_report(what, cfg, pshape, steps, cache_len, run, smi)
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        log(f"{what} peak device memory {res['peak_gib']:.2f} GiB; a rerun's prefill logits "
+            f"within {run['logits_rerun_err']:.3g} of the first's")
+        if cfg.moe is None:
+            # a logged reference: one layer's attention through the block
+            # scan and through PyTorch's fused attention, same inputs
+            b, s = pshape
+            g = torch.Generator(device=dev).manual_seed(3)
+            q, k, v = (torch.randn((b, s, cfg.n_heads, cfg.head_dim), generator=g, device=dev)
+                       .to(torch.bfloat16) for _ in range(3))
+            block = min(cfg.attn_block, s)
+            scan_ms = time_ms(lambda: lm_layers.flash_attention(q, k, v, causal=True,
+                                                                block=block), 3, 1)
+            sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True).transpose(1, 2)
+            sdpa_ms = time_ms(sdpa, 3, 1)
+            diff = float((lm_layers.flash_attention(q, k, v, causal=True, block=block).float()
+                          - sdpa().float()).abs().max())
+            log(f"{what} one layer's attention [{b}, {s}, {cfg.n_heads}, {cfg.head_dim}] bf16: "
+                f"the block scan {scan_ms:.3f} ms, scaled_dot_product_attention {sdpa_ms:.3f} "
+                f"ms (a reference only; max abs difference {diff:.3g})")
+            res.update(attention_scan_ms=scan_ms, attention_sdpa_ms=sdpa_ms)
+            del q, k, v
+        found[what.split()[-1]] = res
+        del model
+        torch.cuda.empty_cache()
+    gate_dense = dataclasses.replace(dense, n_layers=LM_GATE_LAYERS, dtype="float32")
+    found["dense_gate"] = lm_gate(gate_dense, LM_GATE_PREFILL, LM_GATE_STEPS, dev,
+                                  "lm     dense gate", against_prefill=True)
+    gate_moe = dataclasses.replace(moe, n_layers=LM_GATE_LAYERS, dtype="float32")
+    found["moe_gate"] = lm_gate(gate_moe, LM_MOE_GATE_PREFILL, LM_MOE_GATE_STEPS, dev,
+                                "lm     moe gate", against_prefill=False)
+    torch.cuda.empty_cache()
+    log(f"lm     phase {time.perf_counter() - t_phase:.1f} s; {smi}")
+    return found
+
+
 # ---------------------------------------------------------------- phases
 
 def main(n_base: int = N_BASE, n_queries: int = N_QUERIES) -> int:
@@ -2359,6 +2762,7 @@ def main(n_base: int = N_BASE, n_queries: int = N_QUERIES) -> int:
     torch.cuda.empty_cache()
     clustered = cluster_phase(ds, counters, gti, recall, smi)
     examples_phase()
+    lm_phase(smi)
     for kern in kernels:
         for path, found in (("mesh", meshed), ("cluster", clustered)):
             if kern["name"] in found:

@@ -4,5 +4,7 @@ f32 rerank (serving/quantized.py). Same values as
 ``repro/configs/lira_ann_q.py``."""
 from repro_torch.configs.lira_ann import (  # noqa: F401
     CONFIG_QUANTIZED as CONFIG,
+    SHAPES,
     SMOKE_QUANTIZED as SMOKE,
+    SMOKE_SHAPES,
 )

@@ -41,13 +41,16 @@ from repro_torch.core import probing
 from repro_torch.core.kmeans import kmeans_fit
 from repro_torch.core.partitions import build_store
 from repro_torch.core.redundancy import plan_redundancy, replica_rows
+from repro_torch.core import train_probing
 from repro_torch.core.train_probing import train_probing_model
 from repro_torch.kernels import ops as kops
 from repro_torch.launch.mesh import Mesh, make_test_mesh
+from repro_torch.models.api import ModelBundle, ShapeSpec, StepDef, sds
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.serving import api, mutable, scan, tiers
 from repro_torch.serving.frontend import ServingFrontend
+from repro_torch.train import optimizer as opt
 from repro_torch.utils.device import resolve_device
 
 # the dispatch sentinel query row: its ||q||² ≈ d·1e18 stays finite in f32,
@@ -232,6 +235,65 @@ def make_serve_step(cfg: LiraSystemConfig, n_queries: int, *, sigma: float, impl
                 sum(o[4].to(out_dev) for o in outs))
 
     return serve_step
+
+
+def make_bundle(cfg: LiraSystemConfig, mesh: Mesh) -> ModelBundle:
+    """The LIRA system as an architecture (the reference's ``make_bundle``).
+    ``init(generator)`` draws a probing model on the mesh's first device (the
+    generator's device); ``optimizer(model)`` is the reference's AdamW on a
+    cosine schedule (1e-3, 50 warm-up steps of 5,000).
+
+      lira_serve: ``fn(model, store, queries)`` → ``make_serve_step``'s
+                  outputs, every query valid, σ 0.5, k and impl the config's
+                  (``"auto"`` resolved for the mesh's ranks);
+      lira_train: ``fn((model, tx), batch)`` → (the same state, {"loss",
+                  "grad_norm"}) after one step of ``core.train_probing``'s,
+                  in place on the model and ``tx``.
+    """
+    pc = probing.ProbingConfig(dim=cfg.dim, n_partitions=cfg.n_partitions,
+                               q_hidden=tuple(cfg.q_hidden), i_hidden=tuple(cfg.i_hidden),
+                               p_hidden=tuple(cfg.p_hidden))
+    rank_dev = next((d for d in mesh.devices if d.type == "cuda"), mesh.devices[0])
+    impl = kops.resolve_impl(cfg.impl, rank_dev)
+
+    def step(shape: ShapeSpec) -> StepDef:
+        if shape.kind == "lira_serve":
+            nq = shape["n_queries"]
+            serve_step = make_serve_step(cfg, nq, sigma=0.5, impl=impl, k=cfg.k, mesh=mesh)
+
+            def serve(model, store, queries):
+                valid = torch.ones(nq, dtype=torch.bool, device=queries.device)
+                return serve_step(place_ranks(model, store, cfg, mesh), queries, valid)
+
+            specs = tiers.resolve(cfg.tier).store_specs(cfg)
+            return StepDef(fn=serve, input_specs={
+                "store": {n: sds(s, dt) for n, (s, dt) in specs.items()},
+                "queries": sds((nq, cfg.dim))})
+        if shape.kind == "lira_train":
+            b = shape["batch"]
+
+            def train(state, batch):
+                return train_probing.make_train_step(*state)(state, batch)
+
+            return StepDef(fn=train, input_specs={"batch": {
+                "q": sds((b, cfg.dim)), "cent_dist": sds((b, cfg.n_partitions)),
+                "labels": sds((b, cfg.n_partitions))}})
+        raise ValueError(shape.kind)
+
+    def param_specs(shape=None):
+        return {n: sds(p.shape) for n, p in
+                probing.ProbingModel(pc, device="meta").named_parameters()}
+
+    return ModelBundle(
+        name=cfg.arch,
+        config=cfg,
+        init=lambda generator, shape=None: probing.ProbingModel(
+            pc, generator=generator, device=mesh.devices[0]),
+        param_specs=param_specs,
+        step=step,
+        optimizer=lambda model: opt.AdamW(model.parameters(),
+                                          lr=opt.cosine_schedule(1e-3, 50, 5000)),
+    )
 
 
 def _jax_leaf_names(cfg: LiraSystemConfig) -> list:

@@ -661,3 +661,41 @@ def test_partition_topk_runs_the_qbuf_kernel_over_a_dense_dispatch(cuda_device, 
     assert np.isinf(got.dists[:, 6, 3:]).all() and (got.ids[:, 7] == -1).all()
     one = retrieval.partition_topk(store, q, 16, q_batch=len(q))
     assert np.array_equal(one.dists, got.dists) and np.array_equal(one.ids, got.ids)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3_moe_235b_a22b", "moonshot_v1_16b_a3b",
+                                  "deepseek_coder_33b", "mistral_large_123b", "stablelm_3b"])
+def test_lm_prefill_and_decode_on_the_card_equal_the_cpu(cuda_device, arch):
+    """An LM SMOKE config in f32 (TF32 off): the same parameters on the card
+    and on the CPU give prefill logits and caches within 1e-4 and the same
+    token at each of 8 greedy decode steps (both fed the CPU's tokens)."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import transformer as ttr
+
+    cfg = dataclasses.replace(get_smoke(arch)[0], dtype="float32")
+    cpu = ttr.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = copy.deepcopy(cpu).to(cuda_device)
+    steps = {dev: (ttr.make_prefill_step(cfg, make_test_mesh(device=dev)),
+                   ttr.make_decode_step(cfg, make_test_mesh(device=dev), 4, 72))
+             for dev in ("cpu", cuda_device)}
+    toks = torch.randint(1, cfg.vocab, (4, 64), generator=torch.Generator().manual_seed(1))
+    out = {}
+    for dev, model in (("cpu", cpu), (cuda_device, card)):
+        logits, cache = steps[dev][0](model, toks.to(dev))
+        out[dev] = logits.cpu(), {n: torch.nn.functional.pad(c, (0, 0, 0, 0, 0, 8))
+                                  for n, c in cache.items()}
+    (lc, cc), (lg, cg) = out["cpu"], out[cuda_device]
+    assert (lg - lc).abs().max() <= 1e-4
+    for n in ("k", "v"):
+        assert (cg[n].cpu() - cc[n]).abs().max() <= 1e-4
+    tok = lc.argmax(-1).to(torch.int32)[:, None]
+    for pos in range(64, 72):
+        nc, cc = steps["cpu"][1](cpu, cc, tok, pos)
+        ng, cg = steps[cuda_device][1](card, cg, tok.to(cuda_device), pos)
+        assert torch.equal(ng.cpu(), nc), (pos, ng, nc)
+        tok = nc[:, None]

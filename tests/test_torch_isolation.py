@@ -29,7 +29,11 @@ def test_no_module_imports_jax_or_the_jax_package():
     for part in ("launch/mesh.py", "launch/serve.py", "distributed/fault.py",
                  "serving/cluster.py", "core/retrieval.py", "core/baselines.py",
                  "data/pipeline.py", "train/trainer.py", "examples/serve_ann.py",
-                 "examples/quickstart.py", "examples/train_probing_model.py"):
+                 "examples/quickstart.py", "examples/train_probing_model.py",
+                 "models/api.py", "models/layers.py", "models/transformer.py",
+                 "configs/stablelm_3b.py", "configs/deepseek_coder_33b.py",
+                 "configs/mistral_large_123b.py", "configs/moonshot_v1_16b_a3b.py",
+                 "configs/qwen3_moe_235b_a22b.py", "data/smoke.py"):
         assert PKG / part in files
     bad = [(str(f.relative_to(PKG)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]
@@ -45,7 +49,12 @@ def test_importing_the_port_leaves_jax_unloaded():
             "repro_torch.launch.serve, repro_torch.distributed, repro_torch.serving.cluster, "
             "repro_torch.core.retrieval, repro_torch.core.baselines, repro_torch.data.pipeline, "
             "repro_torch.train.trainer, repro_torch.examples.serve_ann, "
-            "repro_torch.examples.quickstart, repro_torch.examples.train_probing_model; "
+            "repro_torch.examples.quickstart, repro_torch.examples.train_probing_model, "
+            "repro_torch.models, repro_torch.models.api, repro_torch.models.layers, "
+            "repro_torch.models.transformer, repro_torch.configs, repro_torch.data.smoke, "
+            "repro_torch.configs.stablelm_3b, repro_torch.configs.deepseek_coder_33b, "
+            "repro_torch.configs.mistral_large_123b, repro_torch.configs.moonshot_v1_16b_a3b, "
+            "repro_torch.configs.qwen3_moe_235b_a22b; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(PKG.parent))
