@@ -195,8 +195,36 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                [4, 2048], 32 decode steps, timed as (a), with the MoE
                capacity and dropped (token, expert) pairs, and (b)'s gate at
                2 layers in f32 (prefill [2, 64], 4 steps).
-Phase 20 launches none of the kernels: the LM's attention is the reference's
-plain block scan, and no Pallas kernel lies on its path.
+ 21. lmtrain — after 20: LM training through build_bundle(...).step(train
+               shape) and the port's Trainer (TokenPipeline batches): (a)
+               stablelm-3b whole (bf16, remat full) at train_4k's sequence of
+               4,096 and the largest batch that fits (8 of 256), a warm-up
+               and two timed steps: ms a step and tokens/s beside the bound
+               by operations (8·N·T and the scan's attention four times, at
+               the bf16 peak) and the bound with the attention's f32
+               products on the CUDA cores, peak memory, every step's loss
+               and grad_norm finite; where a step goes (one layer's block
+               scan forward and forward + backward, the loss, AdamW's
+               update, timed alone); (a') one step at grad_accum 2 over
+               [16, 4096], its peak beside (a)'s; (b) moonshot-v1-16b-a3b's
+               width at 4 layers with its logits_chunk 8, [2, 4096], timed
+               as (a), with the capacity and dropped pairs; (c) at 2 layers
+               of each width in f32, one step on the card and the CPU from
+               one set of parameters (metrics and updated parameters within
+               1e-4), remat none = full = dots bit for bit on the card,
+               logits_chunk 8 and (dense) grad_accum 4 within 1e-4 of their
+               bases; (d) in bf16 at 2 layers, a step run twice equal bit
+               for bit (dense and MoE), and a dense Trainer failed after
+               step 3 resumed from its step-2 checkpoint equal bit for bit
+               to an uninterrupted run; (e) python -m
+               repro_torch.launch.train at stablelm-3b's SMOKE config failed
+               at step 55, restarted (from step 50) to 60, its last
+               checkpoint byte-equal to an uninterrupted run's, and python
+               -m repro_torch.examples.lm_pretrain (200 steps, its loss
+               falls).
+Phases 20 and 21 launch none of the kernels: the LM's attention is the
+reference's plain block scan, its loss and optimizer plain XLA, and no
+Pallas kernel lies on their path.
 Phases 7-12, 15-16 and 17 zero the launch counters just before each path and
 read them just after. Every matmul runs in full f32 (TF32 off for matmul and cuDNN),
 so the plain versions are exact oracles.
@@ -2048,18 +2076,25 @@ def train_phase(eng, ds) -> None:
     log(f"train  phase {time.perf_counter() - t_phase:.1f} s")
 
 
-def run_example(name, *args) -> str:
-    """``python -m repro_torch.examples.<name>`` on the card; its output."""
+def run_module(module, *args, tag: str, expect_fail: bool = False) -> str:
+    """``python -m <module> <args>`` on the card, its output lines logged
+    under ``tag``; fails unless it exits 0 (or, with ``expect_fail``, does
+    not). Returns its standard output and error."""
     t0 = time.perf_counter()
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    out = subprocess.run([sys.executable, "-m", f"repro_torch.examples.{name}", *args],
-                         capture_output=True, text=True, env=env, cwd=ROOT, timeout=600)
+    out = subprocess.run([sys.executable, "-m", module, *args], capture_output=True, text=True,
+                         env=env, cwd=ROOT, timeout=600)
     for line in out.stdout.splitlines():
-        log(f"examples {name} | {line}")
-    if out.returncode:
-        raise AssertionError(f"examples {name} exited {out.returncode}: {out.stderr[-2000:]}")
-    log(f"examples {name}: exit 0 in {time.perf_counter() - t0:.1f} s")
-    return out.stdout
+        log(f"{tag} | {line}")
+    if bool(out.returncode) != expect_fail:
+        raise AssertionError(f"{tag} exited {out.returncode}: {out.stderr[-2000:]}")
+    log(f"{tag}: exit {out.returncode} in {time.perf_counter() - t0:.1f} s")
+    return out.stdout + out.stderr
+
+
+def run_example(name, *args) -> str:
+    """``python -m repro_torch.examples.<name>`` on the card; its output."""
+    return run_module(f"repro_torch.examples.{name}", *args, tag=f"examples {name}")
 
 
 def examples_phase() -> None:
@@ -2469,6 +2504,431 @@ def lm_phase(smi, dev="cuda") -> dict:
     return found
 
 
+# ---------------------------------------------------------------- LM training
+
+LM_TRAIN_SEQ = 4096                   # train_4k's sequence length, uncut
+# train_4k's global batch of 256 cut to the largest that fits (a): on an
+# NVIDIA H100 80GB HBM3 at 700.00 W, 8 takes 56.8 GiB (26.4 of them the
+# parameters and f32 moments), so 16 would need ~87
+LM_TRAIN_BATCH = 8
+# (a), (a'), (b): the first step untimed where there are more; (a') takes
+# one step of twice (a)'s, its peak the point
+LM_TRAIN_STEPS, LM_ACCUM_STEPS, LM_MOE_TRAIN_STEPS = 3, 1, 4
+LM_MOE_TRAIN_BATCH = 2                # (b): its unchunked logits would be 5.4 GB
+LM_TRAIN_GATE = (2, 256)              # (c), (d): 2 layers at each width, [2, 256]
+LM_TRAIN_ATOL = 1e-4                  # (c): card against CPU in f32, and the variants
+LM_GATE_TX = dict(lr=1e-2, weight_decay=0.1, eps=1e-3)   # tests/test_torch_lm_train.py's
+LM_RESUME_STEPS, LM_RESUME_EVERY, LM_RESUME_FAIL = 4, 2, 3      # (d)
+LM_LAUNCH_STEPS, LM_LAUNCH_FAIL = 60, 55                        # (e): a checkpoint every 50
+LM_METRICS = ("loss", "ce", "moe_aux", "grad_norm")
+
+
+def lm_train_bound(cfg, b: int, s: int) -> dict:
+    """A step's operations: 8·N·T for a full-remat step (N the parameters a
+    token uses: forward, the layer's recompute and a backward of twice the
+    forward), plus the block scan's attention (every KV block: 4·b·H·s²·Dh a
+    layer's forward) once for the forward, once for the recompute and twice
+    for backward, all at the dense bf16 peak. Beside it the reference's
+    arithmetic: the attention's products run in f32 on the CUDA cores (TF32
+    off), and the scan recomputes each block once more in backward (five
+    passes), at 67 TFLOP/s."""
+    t = b * s
+    matmul = 8 * cfg.active_param_count * t
+    attn = 4 * b * cfg.n_heads * s * s * cfg.head_dim * cfg.n_layers
+    bound = (matmul + 4 * attn) / PEAK_OPS["bfloat16"]
+    f32 = matmul / PEAK_OPS["bfloat16"] + 5 * attn / PEAK_OPS["float32"]
+    return dict(bound_ms=1e3 * bound, tflop=(matmul + 4 * attn) / 1e12,
+                f32_attention_bound_ms=1e3 * f32)
+
+
+def lm_train_run(what, cfg, state, batch: int, steps: int, dev, count_routing=False) -> dict:
+    """``steps`` train steps of [batch, LM_TRAIN_SEQ] TokenPipeline batches
+    through the Trainer and build_bundle(cfg).step(train shape), each timed
+    on the host clock between synchronizes; the first is the warm-up (and,
+    with ``count_routing``, counts the MoE dispatch's capacity and kept
+    pairs a layer). Every metric must be finite."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.data.pipeline import PipelineSpec, TokenPipeline
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import build_bundle
+    from repro_torch.models import layers as lm_layers
+    from repro_torch.models.api import ShapeSpec
+    from repro_torch.train.trainer import Trainer
+
+    shape = ShapeSpec("train_4k", "train", {"seq_len": LM_TRAIN_SEQ, "global_batch": batch})
+    fn = build_bundle(cfg, make_test_mesh(1, 1, device=dev)).step(shape).fn
+    secs, routing = [], []
+    dispatch = lm_layers.moe_dispatch_local
+
+    def counted(x_all, router_w, e0, e_loc, top_k, capacity):
+        out = dispatch(x_all, router_w, e0, e_loc, top_k, capacity)
+        routing.append((x_all.shape[0], capacity, int((out[2] < x_all.shape[0]).sum())))
+        return out
+
+    def timed(st, b):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if count_routing and not secs:
+            lm_layers.moe_dispatch_local = counted
+        try:
+            out = fn(st, b)
+        finally:
+            lm_layers.moe_dispatch_local = dispatch
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        return out
+
+    pipe = TokenPipeline(PipelineSpec(global_batch=batch), LM_TRAIN_SEQ, cfg.vocab)
+    torch.cuda.reset_peak_memory_stats()
+    _, hist = Trainer(timed, state, pipe, log_every=1).run(steps)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if len(hist) != steps or not all(math.isfinite(h[k]) for h in hist for k in LM_METRICS):
+        raise AssertionError(f"{what}: metrics {hist}")
+    step = float(np.median(secs[1:] or secs))
+    out = dict(batch=batch, steps=steps, step_ms=1e3 * step, warmup_ms=1e3 * secs[0],
+               tok_s=batch * LM_TRAIN_SEQ / step, peak_gib=peak, **lm_train_bound(
+                   cfg, batch, LM_TRAIN_SEQ),
+               losses=[h["loss"] for h in hist], grad_norms=[h["grad_norm"] for h in hist])
+    if count_routing:
+        first = routing[:cfg.n_layers]          # the forward's; the recompute repeats them
+        out.update(capacity=first[0][1], tokens=first[0][0],
+                   dropped=sum(t * cfg.moe.top_k - kept for t, _, kept in first),
+                   pairs=sum(t * cfg.moe.top_k for t, _, _ in first))
+    return out
+
+
+def lm_train_report(what, cfg, res, smi) -> None:
+    log(f"{what} {cfg.arch}: {cfg.n_layers} layers, d {cfg.d_model}, vocab {cfg.vocab}, "
+        f"{cfg.dtype}, remat {cfg.remat}, grad_accum {cfg.grad_accum}, logits_chunk "
+        f"{cfg.logits_chunk}: [{res['batch']}, {LM_TRAIN_SEQ}] "
+        + (f"median {res['step_ms']:.1f} ms a step of {res['steps'] - 1} after a warm-up of "
+           f"{res['warmup_ms']:.1f}" if res["steps"] > 1 else
+           f"{res['step_ms']:.1f} ms for its one step (warm-up included)")
+        + f", {res['tok_s']:.0f} tokens/s; bound "
+        f"{res['bound_ms']:.1f} ms by operations ({res['tflop']:.1f} TFLOP at "
+        f"{PEAK_OPS['bfloat16'] / 1e12:.0f} TFLOP/s), {res['f32_attention_bound_ms']:.1f} ms with "
+        f"the scan's f32 attention at {PEAK_OPS['float32'] / 1e12:.0f}; peak "
+        f"{res['peak_gib']:.2f} GiB; {smi}")
+    log(f"{what} loss by step {[round(v, 4) for v in res['losses']]}, grad_norm "
+        f"{[round(v, 4) for v in res['grad_norms']]}")
+    if "capacity" in res:
+        log(f"{what} MoE: {res['tokens']} tokens a layer, capacity {res['capacity']}, dropped "
+            f"{res['dropped']} of {res['pairs']} (token, expert) pairs over {cfg.n_layers} layers")
+
+
+def lm_train_breakdown(what, cfg, state, batch: int, step_ms: float, smi) -> dict:
+    """Where (a)'s step goes, each part timed alone on the host clock
+    between synchronizes at the step's shapes: one layer's block scan
+    forward under autograd (f) and forward + backward (fb: the backward
+    recomputes each KV block), so the step's scans take L·(f + fb) (the
+    layer's recompute is one more forward); the loss (unembed, f32
+    logsumexp) forward + backward; AdamW's update of every parameter. The
+    rest is the layers' bf16 matmuls, norms, RoPE, SwiGLU, the embedding,
+    the clip and the host."""
+    import torch
+
+    from repro_torch.models import layers as lm_layers
+    from repro_torch.models import transformer as ttr
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0)
+
+    s, dt, dev = LM_TRAIN_SEQ, getattr(torch, cfg.dtype), state.device
+    g = torch.Generator(device=dev).manual_seed(4)
+    q, k, v = (torch.randn((batch, s, h, cfg.head_dim), generator=g, device=dev).to(dt)
+               .requires_grad_() for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+    block = min(cfg.attn_block, s)
+
+    def scan():
+        return lm_layers.flash_attention(q, k, v, causal=True, block=block)
+
+    f_ms = timed(scan)
+    fb_ms = timed(lambda: torch.autograd.grad(scan().float().sum(), (q, k, v)))
+    del q, k, v
+    h = torch.randn((batch, s, cfg.d_model), generator=g, device=dev).to(dt).requires_grad_()
+    labels = torch.randint(0, cfg.vocab, (batch, s), generator=g, device=dev)
+    model, tx = state
+    ce_ms = timed(lambda: torch.autograd.grad(
+        ttr._softmax_ce(h, model.unembed, labels, cfg.logits_chunk), (h, model.unembed)))
+    del h, labels
+    grads = [torch.zeros_like(p) for p in tx.params]
+    opt_ms = timed(lambda: tx.update(grads))
+    del grads
+    attn_ms = cfg.n_layers * (f_ms + fb_ms)
+    rest = step_ms - attn_ms - ce_ms - opt_ms
+    log(f"{what} where a step of {step_ms:.0f} ms goes: the block scans {attn_ms:.0f} ms "
+        f"({cfg.n_layers} layers x (forward {f_ms:.1f} + forward and backward {fb_ms:.1f})), "
+        f"the loss {ce_ms:.1f} ms (forward and backward), AdamW's update {opt_ms:.1f} ms "
+        f"({len(tx.params)} tensors), the rest {rest:.0f} ms; {smi}")
+    return dict(scan_forward_ms=f_ms, scan_fb_ms=fb_ms, scans_ms=attn_ms, loss_ms=ce_ms,
+                adamw_ms=opt_ms, rest_ms=rest)
+
+
+def lm_train_step_once(model, cfg, batch, dev):
+    """One train step of ``model`` under LM_GATE_TX's AdamW: the metrics
+    (a CPU tensor, LM_METRICS' order) and the model (updated in place)."""
+    import torch
+
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import transformer as ttr
+
+    state = ttr.TrainState(model, ttr.adamw(model, **LM_GATE_TX))
+    step = ttr.make_train_step(cfg, make_test_mesh(1, 1, device=dev))
+    _, m = step(state, {k: torch.as_tensor(v, device=dev) for k, v in batch.items()})
+    return torch.stack([m[k] for k in LM_METRICS]).cpu()
+
+
+def lm_params_equal(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(a.parameters(), b.parameters()))
+
+
+def lm_param_err(a, b) -> float:
+    """Largest |difference| between two LMs' parameters, on ``a``'s device."""
+    return max(float((x.detach() - y.detach().to(x.device)).abs().max())
+               for x, y in zip(a.parameters(), b.parameters()))
+
+
+def lm_train_gate(what, cfg, dev, *, accum: bool) -> dict:
+    """(c) At 2 layers in f32 from one set of parameters: one train step on
+    the card and on the CPU (metrics and updated parameters within
+    LM_TRAIN_ATOL); on the card remat none and dots equal to full bit for
+    bit, logits_chunk 8 within LM_TRAIN_ATOL of 0 and, with ``accum``,
+    grad_accum 4 within LM_TRAIN_ATOL of 1 on one [4, s] batch."""
+    import copy
+
+    import torch
+
+    from repro_torch.data.pipeline import PipelineSpec, TokenPipeline
+    from repro_torch.models import transformer as ttr
+
+    t0 = time.perf_counter()
+    b, s = LM_TRAIN_GATE
+    batch = TokenPipeline(PipelineSpec(global_batch=2 * b), s, cfg.vocab).batch_at(0)
+    two = {k: v[:b] for k, v in batch.items()}
+    init = ttr.init_params(cfg, torch.Generator(device=dev).manual_seed(1), dev)
+    card = copy.deepcopy(init)
+    m_card = lm_train_step_once(card, cfg, two, dev)
+    cpu = copy.deepcopy(init).to("cpu")
+    m_cpu = lm_train_step_once(cpu, cfg, two, "cpu")
+    err_m, err_p = float((m_card - m_cpu).abs().max()), lm_param_err(card, cpu)
+    del cpu
+    if not err_m <= LM_TRAIN_ATOL or not err_p <= LM_TRAIN_ATOL:
+        raise AssertionError(f"{what}: card != CPU: metrics {m_card.tolist()} vs "
+                             f"{m_cpu.tolist()}, parameters by {err_p}")
+    out = dict(metrics_err=err_m, params_err=err_p)
+    for remat in ("none", "dots"):
+        model = copy.deepcopy(init)
+        m = lm_train_step_once(model, dataclasses.replace(cfg, remat=remat), two, dev)
+        if not torch.equal(m, m_card) or not lm_params_equal(model, card):
+            raise AssertionError(f"{what}: remat {remat} differs from full")
+        del model
+    variants = [("logits_chunk 8", dataclasses.replace(cfg, logits_chunk=8), two, m_card, card)]
+    if accum:
+        base = copy.deepcopy(init)
+        m_base = lm_train_step_once(base, cfg, batch, dev)
+        variants.append(("grad_accum 4", dataclasses.replace(cfg, grad_accum=4), batch, m_base,
+                         base))
+    for name, vcfg, vbatch, m_ref, ref in variants:
+        model = copy.deepcopy(init)
+        m = lm_train_step_once(model, vcfg, vbatch, dev)
+        errs = (float((m - m_ref).abs().max()), lm_param_err(model, ref))
+        if not max(errs) <= LM_TRAIN_ATOL:
+            raise AssertionError(f"{what}: {name}: metrics {m.tolist()} vs {m_ref.tolist()}, "
+                                 f"parameters by {errs[1]}")
+        out[name] = errs
+        del model
+    log(f"{what}: {cfg.n_layers} layers at d {cfg.d_model}, vocab {cfg.vocab}, f32, [{b}, {s}]: "
+        f"card = CPU (metrics within {err_m:.3g}, updated parameters within {err_p:.3g}; "
+        f"tolerance {LM_TRAIN_ATOL}); remat none = full = dots bit for bit; "
+        + "; ".join(f"{n} against its base: metrics {out[n][0]:.3g}, parameters {out[n][1]:.3g}"
+                    for n, *_ in variants)
+        + f" ({time.perf_counter() - t0:.1f} s)")
+    return out
+
+
+def lm_train_determinism(what, cfg, dev, *, resume: bool) -> None:
+    """(d) bf16 at 2 layers: one train step run twice from one state gives
+    the same metrics and parameters bit for bit; with ``resume``, a Trainer
+    failed after step LM_RESUME_FAIL's update resumes from its checkpoint and
+    ends equal bit for bit to an uninterrupted run."""
+    import copy
+    import shutil
+
+    import torch
+
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.data.pipeline import PipelineSpec, TokenPipeline
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import transformer as ttr
+    from repro_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    b, s = LM_TRAIN_GATE
+    pipe = TokenPipeline(PipelineSpec(global_batch=b, seed=1), s, cfg.vocab)
+    init = ttr.init_params(cfg, torch.Generator(device=dev).manual_seed(2), dev)
+    runs = []
+    for _ in range(2):
+        model = copy.deepcopy(init)
+        runs.append((lm_train_step_once(model, cfg, pipe.batch_at(0), dev), model))
+    if not torch.equal(runs[0][0], runs[1][0]) or not lm_params_equal(runs[0][1], runs[1][1]):
+        raise AssertionError(f"{what}: two runs of one step differ: {runs[0][0].tolist()} vs "
+                             f"{runs[1][0].tolist()}")
+    del runs
+    msg = (f"{what}: {cfg.arch} width, {cfg.n_layers} layers, bf16: a step run twice equal bit "
+           f"for bit")
+    if resume:
+        ckpt_dir = os.path.join(ROOT, "build", "chip_smoke_lm_ckpt")
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        step = ttr.make_train_step(cfg, make_test_mesh(1, 1, device=dev))
+
+        def trainer(ckpt=None):
+            model = copy.deepcopy(init)
+            return Trainer(step, ttr.TrainState(model, ttr.adamw(model, **LM_GATE_TX)), pipe,
+                           ckpt_manager=ckpt, ckpt_every=LM_RESUME_EVERY, log_every=1)
+
+        gold, hist = trainer().run(LM_RESUME_STEPS)
+        cm = CheckpointManager(ckpt_dir, keep=2)
+        try:
+            trainer(cm).run(LM_RESUME_STEPS, fail_at=LM_RESUME_FAIL)
+            raise AssertionError(f"{what}: the run did not fail")
+        except RuntimeError as e:
+            if "simulated failure" not in str(e):
+                raise
+        again = trainer(cm)
+        resumed = again.start_step
+        if resumed != LM_RESUME_FAIL // LM_RESUME_EVERY * LM_RESUME_EVERY:
+            raise AssertionError(f"{what}: resumed at step {resumed}")
+        state, hist2 = again.run(LM_RESUME_STEPS)
+        bad = [n for n, x, y in zip(gold.leaf_names(), gold.leaves(), state.leaves())
+               if not torch.equal(x, y)]
+        if bad or [h["loss"] for h in hist] != [h["loss"] for h in hist2]:
+            raise AssertionError(f"{what}: the resumed run differs in {bad}")
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        msg += (f"; failed after step {LM_RESUME_FAIL}'s update, resumed at step "
+                f"{resumed}: all {len(gold.leaf_names())} state leaves and "
+                f"the losses equal bit for bit to an uninterrupted run of {LM_RESUME_STEPS}")
+    log(msg + f" ({time.perf_counter() - t0:.1f} s)")
+
+
+def lm_launch_phase() -> None:
+    """(e) The launcher at stablelm-3b's SMOKE config: failed at step
+    LM_LAUNCH_FAIL (after the step-50 checkpoint), restarted to
+    LM_LAUNCH_STEPS, its last checkpoint equal file for file to an
+    uninterrupted run's; lm_pretrain at its own 200 steps, whose loss falls."""
+    import shutil
+
+    from repro_torch.ckpt.checkpoint import load_leaves, read_manifest
+
+    dirs = [os.path.join(ROOT, "build", f"chip_smoke_launch_{n}") for n in ("a", "b")]
+    pre = os.path.join(ROOT, "build", "chip_smoke_lm_pretrain")
+    for d in dirs + [pre]:
+        shutil.rmtree(d, ignore_errors=True)
+    args = ["--arch", "stablelm-3b", "--steps", str(LM_LAUNCH_STEPS)]
+    text = run_module("repro_torch.launch.train", *args, "--ckpt-dir", dirs[0], "--fail-at",
+                      str(LM_LAUNCH_FAIL), tag="lmtrain train", expect_fail=True)
+    if f"simulated failure at step {LM_LAUNCH_FAIL}" not in text:
+        raise AssertionError("lmtrain the launcher did not fail as asked")
+    text = run_module("repro_torch.launch.train", *args, "--ckpt-dir", dirs[0],
+                      tag="lmtrain train")
+    if "starting at step 50" not in text:
+        raise AssertionError("lmtrain the restart did not resume at step 50")
+    run_module("repro_torch.launch.train", *args, "--ckpt-dir", dirs[1], tag="lmtrain train")
+    files = []
+    for d in dirs:
+        step_dir, meta = read_manifest(d)
+        files.append((meta["step"], load_leaves(step_dir, meta)))
+    (sa, la), (sb, lb) = files
+    if sa != sb or len(la) != len(lb) or any(x.tobytes() != y.tobytes() for x, y in zip(la, lb)):
+        raise AssertionError("lmtrain the restarted run's last checkpoint differs from the "
+                             "uninterrupted run's")
+    text = run_module("repro_torch.examples.lm_pretrain", "--ckpt-dir", pre,
+                      tag="lmtrain lm_pretrain")
+    if not text.rstrip().endswith("ok"):
+        raise AssertionError("lmtrain lm_pretrain did not end with ok")
+    for d in dirs + [pre]:
+        shutil.rmtree(d, ignore_errors=True)
+    log(f"lmtrain launcher: failed at step {LM_LAUNCH_FAIL}, resumed at 50, its step-{sa} "
+        f"checkpoint ({len(la)} leaves) equal byte for byte to an uninterrupted run's; "
+        f"lm_pretrain's loss fell")
+
+
+def lm_train_phase(smi, dev="cuda") -> dict:
+    """21. LM training on the card: (a) stablelm-3b whole, timed, and (a')
+    with grad_accum 2 over twice the batch; (b) moonshot-v1-16b-a3b's width
+    at LM_MOE_LAYERS layers with its logits_chunk 8; (c) card = CPU and the
+    variants' gates; (d) bit-equal reruns and resume; (e) the launcher and
+    lm_pretrain."""
+    import torch
+
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import build_bundle
+    from repro_torch.models import transformer as ttr
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    # phase 20's configurations: stablelm-3b whole with its own remat full,
+    # grad_accum 1 and logits_chunk 0; moonshot's width at LM_MOE_LAYERS
+    # layers with its logits_chunk 8
+    dense, moe = lm_configs()
+    found = {}
+    t0 = time.perf_counter()
+    bundle = build_bundle(dense, make_test_mesh(1, 1, device=dev))
+    model = bundle.init(torch.Generator(device=dev).manual_seed(0))
+    state = ttr.TrainState(model, bundle.optimizer(model))
+    torch.cuda.synchronize()
+    log(f"lmtrain {dense.arch}: {dense.param_count / 1e9:.3f} B parameters and their f32 "
+        f"moments ({torch.cuda.memory_allocated() / 2**30:.2f} GiB) made on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    found["dense"] = lm_train_run("lmtrain dense", dense, state, LM_TRAIN_BATCH, LM_TRAIN_STEPS,
+                                  dev)
+    lm_train_report("lmtrain dense", dense, found["dense"], smi)
+    found["dense"].update(lm_train_breakdown("lmtrain dense", dense, state, LM_TRAIN_BATCH,
+                                             found["dense"]["step_ms"], smi))
+    accum = dataclasses.replace(dense, grad_accum=2)
+    found["accum"] = lm_train_run("lmtrain accum", accum, state, 2 * LM_TRAIN_BATCH,
+                                  LM_ACCUM_STEPS, dev)
+    lm_train_report("lmtrain accum", accum, found["accum"], smi)
+    log(f"lmtrain grad_accum 2 over [{2 * LM_TRAIN_BATCH}, {LM_TRAIN_SEQ}]: peak "
+        f"{found['accum']['peak_gib']:.2f} GiB against {found['dense']['peak_gib']:.2f} at "
+        f"grad_accum 1 over [{LM_TRAIN_BATCH}, {LM_TRAIN_SEQ}]")
+    del bundle, model, state
+    torch.cuda.empty_cache()
+
+    bundle = build_bundle(moe, make_test_mesh(1, 1, device=dev))
+    model = bundle.init(torch.Generator(device=dev).manual_seed(0))
+    state = ttr.TrainState(model, bundle.optimizer(model))
+    found["moe"] = lm_train_run("lmtrain moe", moe, state, LM_MOE_TRAIN_BATCH,
+                                LM_MOE_TRAIN_STEPS, dev, count_routing=True)
+    lm_train_report("lmtrain moe", moe, found["moe"], smi)
+    del bundle, model, state
+    torch.cuda.empty_cache()
+
+    for what, cfg, accum_gate in (("lmtrain dense gate", dense, True),
+                                  ("lmtrain moe gate", moe, False)):
+        gate = dataclasses.replace(cfg, n_layers=LM_GATE_LAYERS, dtype="float32")
+        found[what.split()[1] + "_gate"] = lm_train_gate(what, gate, dev, accum=accum_gate)
+        torch.cuda.empty_cache()
+    for what, cfg, resume in (("lmtrain dense rerun", dense, True),
+                              ("lmtrain moe rerun", moe, False)):
+        lm_train_determinism(what, dataclasses.replace(cfg, n_layers=LM_GATE_LAYERS), dev,
+                             resume=resume)
+        torch.cuda.empty_cache()
+    lm_launch_phase()
+    log(f"lmtrain phase {time.perf_counter() - t_phase:.1f} s; {smi}")
+    return found
+
+
 # ---------------------------------------------------------------- phases
 
 def main(n_base: int = N_BASE, n_queries: int = N_QUERIES) -> int:
@@ -2763,6 +3223,7 @@ def main(n_base: int = N_BASE, n_queries: int = N_QUERIES) -> int:
     clustered = cluster_phase(ds, counters, gti, recall, smi)
     examples_phase()
     lm_phase(smi)
+    lm_train_phase(smi)
     for kern in kernels:
         for path, found in (("mesh", meshed), ("cluster", clustered)):
             if kern["name"] in found:

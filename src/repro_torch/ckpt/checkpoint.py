@@ -14,6 +14,14 @@ which readers ignore and the next save of that step replaces.
 ``CheckpointManager.restore`` reads the newest complete step back into a
 template's dtypes and devices, so a directory either package wrote resumes
 in the other.
+
+npy has no bfloat16. ``save`` writes a bfloat16 tensor upcast to f32
+(exact), which the reference's ``restore`` casts back to its template's
+bfloat16. The reference writes a bfloat16 leaf as raw 2-byte records (a
+``|V2`` npy) beside the manifest dtype "bfloat16"; ``load_leaves`` reads
+those bits as bfloat16 and returns them as f32 (exact), so ``restore`` gives
+them back bit for bit. (The reference's own ``restore`` cannot cast such a
+file: it raises on its ``astype``.)
 """
 from __future__ import annotations
 
@@ -41,8 +49,7 @@ class CheckpointManager:
         """Write ``leaves`` (arrays or tensors on any device, in flatten
         order) and ``extra`` (JSON) as step ``step``; returns the step
         directory."""
-        leaves = [np.asarray(leaf.detach().cpu().numpy()
-                             if isinstance(leaf, torch.Tensor) else leaf, order="C")
+        leaves = [np.asarray(_host(leaf) if isinstance(leaf, torch.Tensor) else leaf, order="C")
                   for leaf in leaves]
         tmp = self.dir / f"step_{step:010d}.tmp"
         final = self.dir / f"step_{step:010d}"
@@ -102,6 +109,19 @@ class CheckpointManager:
         return leaves, step, meta["extra"]
 
 
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy, bfloat16 upcast to f32 (exact)."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _bf16_bits_to_f32(arr: np.ndarray) -> np.ndarray:
+    """Raw bfloat16 records (2 bytes each) as the f32 values they hold: the
+    bits are the top half of the f32's."""
+    bits = np.ascontiguousarray(arr).view(np.uint16).astype(np.uint32) << 16
+    return bits.view(np.float32)
+
+
 def all_steps(directory) -> list:
     """Complete steps under ``directory`` (a step directory counts once its
     manifest exists), ascending."""
@@ -133,10 +153,16 @@ def read_manifest(directory, step: Optional[int] = None):
 
 def load_leaves(step_dir, meta: dict, proc: int = 0) -> list:
     """Every leaf of the step, each checked against the manifest's shape and
-    dtype."""
+    dtype; a bfloat16 leaf written as 2-byte records comes back as f32."""
     leaves = []
     for i in range(meta["n_leaves"]):
         arr = np.load(pathlib.Path(step_dir) / f"leaf_{i:05d}.p{proc}.npy")
+        if meta["dtypes"][i] == "bfloat16" and arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+            if list(arr.shape) != list(meta["shapes"][i]):
+                raise ValueError(f"leaf {i}: file holds {list(arr.shape)}, manifest says "
+                                 f"{meta['shapes'][i]}")
+            leaves.append(_bf16_bits_to_f32(arr))
+            continue
         if list(arr.shape) != list(meta["shapes"][i]) or str(arr.dtype) != meta["dtypes"][i]:
             raise ValueError(f"leaf {i}: file holds {arr.dtype}{list(arr.shape)}, manifest "
                              f"says {meta['dtypes'][i]}{meta['shapes'][i]}")

@@ -21,9 +21,9 @@ class MoEConfig:
 
 @dataclasses.dataclass(frozen=True)
 class LMConfig:
-    """The JAX config's serving fields, with its names and defaults. Its
-    training knobs (``remat``, ``logits_chunk``, ``grad_accum``) and mesh
-    knobs (``moe_impl``, ``ffn_impl``) come with the slices that read them."""
+    """The JAX config's fields, with its names and defaults, but for the
+    meshed LM's knobs (``moe_impl``, ``ffn_impl``), which come with the
+    slice that reads them."""
     arch: str
     n_layers: int
     d_model: int
@@ -35,7 +35,10 @@ class LMConfig:
     moe: Optional[MoEConfig] = None
     rope_theta: float = 10_000.0
     dtype: str = "bfloat16"
+    remat: str = "full"             # full | dots | none (per layer, in training)
     attn_block: int = 1024          # flash-scan KV block
+    logits_chunk: int = 0           # 0 = unchunked loss
+    grad_accum: int = 1             # microbatches per step (memory lever)
     attn_score_dtype: str = "float32"  # float32 | bfloat16 (materialized scores)
 
     @property

@@ -1,7 +1,6 @@
 """mistral-large-123b [hf:mistralai/Mistral-Large-Instruct-2407; unverified] —
 dense: 88L d_model=12288 96H (GQA kv=8, head_dim=128) d_ff=28672 vocab=32768.
-Same values as ``repro/configs/mistral_large_123b.py``,
-its training knobs left out (see ``base.LMConfig``)."""
+Same values as ``repro/configs/mistral_large_123b.py``."""
 from repro_torch.configs.base import LMConfig, LM_SHAPES
 from repro_torch.models.api import ShapeSpec
 
@@ -9,6 +8,7 @@ CONFIG = LMConfig(
     arch="mistral-large-123b",
     n_layers=88, d_model=12288, n_heads=96, n_kv_heads=8, head_dim=128,
     d_ff=28672, vocab=32768,
+    grad_accum=4,
 )
 SHAPES = LM_SHAPES
 

@@ -1,5 +1,5 @@
-"""Deterministic, resumable host data pipeline for probing-model training;
-counterpart of ``repro/data/pipeline.py``'s ``PipelineSpec`` and
+"""Deterministic, resumable host data pipeline; counterpart of
+``repro/data/pipeline.py``'s ``PipelineSpec``, ``TokenPipeline`` and
 ``ProbingPipeline``.
 
 Every batch is a pure numpy function of (seed, step, host_id): there is no
@@ -10,6 +10,7 @@ equal bit for bit to the reference's.
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterator
 
 import numpy as np
 
@@ -27,6 +28,28 @@ class PipelineSpec:
             raise ValueError(f"global batch {self.global_batch} does not split over "
                              f"{self.n_hosts} hosts")
         return self.global_batch // self.n_hosts
+
+
+class TokenPipeline:
+    """Next-token LM batches from a synthetic Zipf token stream: int32
+    ``tokens`` and ``labels`` [host_batch, seq_len], labels one ahead."""
+
+    def __init__(self, spec: PipelineSpec, seq_len: int, vocab: int):
+        self.spec = spec
+        self.seq_len = seq_len
+        self.vocab = vocab
+
+    def batch_at(self, step: int) -> dict:
+        rng = np.random.default_rng((self.spec.seed, step, self.spec.host_id))
+        toks = np.minimum(rng.zipf(1.3, (self.spec.host_batch, self.seq_len + 1)),
+                          self.vocab - 1).astype(np.int32)
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def __iter__(self) -> Iterator[dict]:
+        step = 0
+        while True:
+            yield self.batch_at(step)
+            step += 1
 
 
 class ProbingPipeline:

@@ -1,7 +1,8 @@
-"""Deterministic synthetic vector datasets (numpy only; a copy of
-``repro/data/synthetic.py:make_vector_dataset`` so the port stands alone).
+"""Deterministic synthetic datasets (numpy only; copies of
+``repro/data/synthetic.py``'s ``make_vector_dataset`` and
+``make_token_dataset`` so the port stands alone).
 
-A SIFT-like high-dimensional mixture:
+``make_vector_dataset`` builds a SIFT-like high-dimensional mixture:
   * ``n_modes`` anisotropic Gaussian clusters with power-law weights (local
     density variation — the paper's source of long-tail kNN),
   * a fraction of points placed on *segments between* cluster centers
@@ -70,3 +71,10 @@ def make_vector_dataset(
     x = np.concatenate([core, bound, noise]).astype(np.float32)
     rng.shuffle(x)
     return VectorDataset(base=x[:n], queries=x[n:], name=name)
+
+
+def make_token_dataset(n_tokens: int, vocab: int, seed: int = 0) -> np.ndarray:
+    """Zipf-distributed token stream for LM smoke training."""
+    rng = np.random.default_rng(seed)
+    ranks = rng.zipf(1.3, n_tokens).astype(np.int64)
+    return np.clip(ranks, 1, vocab - 1).astype(np.int32)

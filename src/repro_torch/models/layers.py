@@ -12,6 +12,16 @@ multiplies in the operands' type and casts the product afterwards
 (``einsum(bf16, bf16).astype(f32)``), the product is rounded to the operands'
 type first here too.
 
+Every function here is differentiable, to the reference's gradients. Two
+choices keep a backward pass's bits the same on every run on the card:
+  * a gather of rows by an index that repeats (``take_rows``: the embedding,
+    the MoE dispatch's and combine's row gathers) sums its gradient rows
+    per index in row order (``core.kmeans.segment_sum``), where autograd's
+    own backward would add them by float atomics on the card;
+  * the online-softmax loop recomputes each KV block's tiles in backward
+    (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` of
+    its scan body does, so no f32 [.., Sq, block] tile is kept per block.
+
 The expert-parallel pieces (``_sort_pack``, ``moe_a2a_local``) run only over a
 model axis larger than 1 and are not ported yet.
 """
@@ -19,6 +29,31 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.core.kmeans import segment_sum
+
+
+class _TakeRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.n_rows = table.shape[0]
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        out = segment_sum(grad.reshape(idx.numel(), -1), idx.reshape(-1), ctx.n_rows)
+        return out.reshape(ctx.n_rows, *grad.shape[idx.ndim:]), None
+
+
+def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` (idx int64, any shape) whose backward sums the rows of
+    each index in a fixed order, the same bits on every run."""
+    if not torch.is_grad_enabled():           # serving: a plain gather, no autograd node
+        return table[idx]
+    return _TakeRows.apply(table, idx)
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -81,26 +116,37 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     acc = torch.zeros((b, kv, g, sq, dh), dtype=torch.float32, device=dev)
     m = torch.full((b, kv, g, sq), -1e30, dtype=torch.float32, device=dev)
     l = torch.zeros((b, kv, g, sq), dtype=torch.float32, device=dev)
+    remat = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
     for blk in range(skv // block):
-        ks = f32(k[:, blk * block:(blk + 1) * block].permute(0, 2, 3, 1))   # [B, KV, Dh, blk]
-        vs = f32(v[:, blk * block:(blk + 1) * block].permute(0, 2, 1, 3))   # [B, KV, blk, Dh]
-        s = torch.matmul(qg, ks).view(b, kv, g, sq, block)
-        if score_dtype != torch.float32:
-            s = s.to(score_dtype).float()
-        s = s * scale
-        if causal:
-            cols = blk * block + torch.arange(block, device=dev)
-            s = torch.where(cols[None, :] <= rows[:, None], s, -1e30)
-        m_new = torch.maximum(m, s.amax(-1))
-        alpha = torch.exp(m - m_new)
-        p = torch.exp(s - m_new[..., None])
-        l = l * alpha + p.sum(-1)
-        pv = torch.matmul(p.to(k.dtype).float().view(b, kv, g * sq, block), vs)
-        acc = acc * alpha[..., None] + pv.view(b, kv, g, sq, dh)
-        m = m_new
-        del s, p, pv
+        args = (qg, k, v, acc, m, l, rows, scale, blk * block, block, causal, score_dtype)
+        acc, m, l = (checkpoint(_attend_block, *args, use_reentrant=False) if remat
+                     else _attend_block(*args))
     out = acc / torch.clamp(l, min=1e-30)[..., None]            # [B, KV, G, Sq, Dh]
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh).to(q.dtype)
+
+
+def _attend_block(qg, k, v, acc, m, l, rows, scale, start: int, block: int, causal: bool,
+                  score_dtype):
+    """One step of ``flash_attention``'s loop: KV rows [start, start + block)
+    folded into the running (acc, m, l)."""
+    b, kv, gsq, dh = qg.shape
+    g, sq = m.shape[2], m.shape[3]
+    ks = f32(k[:, start:start + block].permute(0, 2, 3, 1))     # [B, KV, Dh, blk]
+    vs = f32(v[:, start:start + block].permute(0, 2, 1, 3))     # [B, KV, blk, Dh]
+    s = torch.matmul(qg, ks).view(b, kv, g, sq, block)
+    if score_dtype != torch.float32:
+        s = s.to(score_dtype).float()
+    s = s * scale
+    if causal:
+        cols = start + torch.arange(block, device=qg.device)
+        s = torch.where(cols[None, :] <= rows[:, None], s, -1e30)
+    m_new = torch.maximum(m, s.amax(-1))
+    alpha = torch.exp(m - m_new)
+    p = torch.exp(s - m_new[..., None])
+    l = l * alpha + p.sum(-1)
+    pv = torch.matmul(p.to(k.dtype).float().view(b, kv, gsq, block), vs)
+    acc = acc * alpha[..., None] + pv.view(b, kv, g, sq, dh)
+    return acc, m_new, l
 
 
 def swiglu_mlp(x: torch.Tensor, wi: torch.Tensor, wg: torch.Tensor,
@@ -156,7 +202,7 @@ def moe_dispatch_local(x_all: torch.Tensor, router_w: torch.Tensor, e0: int, e_l
     gate_buf, tok_buf = gate_buf[:e_loc], tok_buf[:e_loc]
     # scatter token indices first and gather rows once: no [T·k, D] copy
     x_pad = torch.cat([x_all, x_all.new_zeros((1, d))])
-    return x_pad[tok_buf.long()], gate_buf, tok_buf
+    return take_rows(x_pad, tok_buf.long()), gate_buf, tok_buf
 
 
 def moe_expert_ffn(buf: torch.Tensor, wi: torch.Tensor, wg: torch.Tensor,
@@ -185,5 +231,5 @@ def moe_combine_local(expert_out: torch.Tensor, gate_buf: torch.Tensor,
     out = torch.zeros((n_tokens, d), dtype=torch.float32, device=expert_out.device)
     for j in range(top_k if n_tokens else 0):
         slot = order[(start[:-1] + j).clamp(max=order.numel() - 1)]
-        out = out + torch.where((j < count)[:, None], weighted[slot], 0.0)
+        out = out + torch.where((j < count)[:, None], take_rows(weighted, slot), 0.0)
     return out

@@ -16,23 +16,35 @@
     stacked cache ``{"k", "v"}: [L, B, S, KV, Dh]`` (the reference's layout,
     so a JAX prefill's cache feeds this decode); ``make_decode_step`` writes
     the cache in place at (layer, pos) (the reference donates it) and
-    returns the greedy next token.
+    returns the greedy next token;
+  * training: ``make_train_step`` — the loss ``ce + 0.01·aux`` (next-token
+    cross-entropy, chunked over the sequence with ``cfg.logits_chunk``; the
+    MoE load-balance aux summed over layers), each layer rematerialized in
+    backward as ``cfg.remat`` says, ``cfg.grad_accum`` microbatches summed
+    into an f32 accumulator, gradients clipped to global norm 1, then the
+    optimizer (``adamw``: the reference's decay rule on its stacked tree).
+    ``TrainState`` lists the model and optimizer as the reference's
+    checkpoint holds them, so a checkpoint either package writes resumes in
+    the other.
 
 The meshed LM (sequence-sharded decode, expert parallelism, the
-sequence-parallel FFN) and training are not ported yet: a mesh other than
-1 × 1 and the ``train`` shape kind raise.
+sequence-parallel FFN) is not ported yet: a mesh other than 1 × 1 raises.
 """
 from __future__ import annotations
 
+import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.models import layers as L
 from repro_torch.models.api import ModelBundle, ShapeSpec, StepDef, sds
+from repro_torch.train import optimizer as opt
 from repro_torch.utils.device import resolve_device
 
 
@@ -113,7 +125,7 @@ class LM(nn.Module):
         dev, dt = resolve_device(device), _dtype(cfg)
 
         def param(shape):
-            return nn.Parameter(torch.empty(shape, dtype=dt, device=dev), requires_grad=False)
+            return nn.Parameter(torch.empty(shape, dtype=dt, device=dev))
 
         defs = _param_defs(cfg)
         self.embed = param(defs["embed"])
@@ -248,20 +260,78 @@ def _layer(x: torch.Tensor, lp, cfg: LMConfig, positions: torch.Tensor, q_offset
     return x + ff, k, v, aux
 
 
-@torch.inference_mode()
+def _remat(fn, remat: str, *args):
+    """``fn(*args)``; while autograd records, under the reference's per-layer
+    remat policy: "full" keeps only the inputs and recomputes the rest in
+    backward, "dots" keeps the matmul outputs too, "none" keeps everything.
+    Remat changes what is held between forward and backward, not a value."""
+    if remat == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    if remat == "full":
+        return checkpoint(fn, *args, use_reentrant=False)
+    if remat == "dots":
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=_save_dots)
+    raise ValueError(f"unknown remat {remat!r}: full, dots or none")
+
+
+# JAX's checkpoint_dots saves every dot_general's output: here the aten
+# products the layer's matmuls reach
+_save_dots = functools.partial(create_selective_checkpoint_contexts,
+                               [torch.ops.aten.mm.default, torch.ops.aten.bmm.default])
+
+
+def _train_layer(x, lp, cfg: LMConfig, positions, q_offset: int):
+    x, _, _, aux = _layer(x, lp, cfg, positions, q_offset, with_aux=True)
+    return x, aux
+
+
 def forward(model: LM, tokens: torch.Tensor, *, q_offset: int = 0):
-    """Causal forward (inference only): tokens [B, S] -> (final hidden
-    [B, S, D] before the unembed, MoE aux loss summed over layers)."""
+    """Causal forward: tokens [B, S] -> (final hidden [B, S, D] before the
+    unembed, MoE aux loss summed over layers, f32). Differentiable; while
+    autograd records, each layer is rematerialized as ``cfg.remat`` says."""
     cfg = model.cfg
     s = tokens.shape[1]
-    x = model.embed[tokens.long()].to(_dtype(cfg))
+    x = L.take_rows(model.embed, tokens.long()).to(_dtype(cfg))
     positions = q_offset + torch.arange(s, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in model.layers:
-        x, _, _, aux_l = _layer(x, lp, cfg, positions, q_offset, with_aux=True)
+        x, aux_l = _remat(_train_layer, cfg.remat, x, lp, cfg, positions, q_offset)
         if aux_l is not None:
             aux = aux + aux_l
     return L.rmsnorm(x, model.ln_f), aux
+
+
+def _chunk_ce(hidden: torch.Tensor, unembed: torch.Tensor, labels: torch.Tensor):
+    """Σ (logsumexp − gold logit) over [B, S'] positions; the logits are the
+    product in the operands' type cast to f32, as prefill computes them."""
+    logits = (hidden @ unembed).float()
+    gold = torch.take_along_dim(logits, labels.long()[..., None], -1)[..., 0]
+    return (torch.logsumexp(logits, -1) - gold).sum()
+
+
+def _softmax_ce(hidden: torch.Tensor, unembed: torch.Tensor, labels: torch.Tensor,
+                chunks: int) -> torch.Tensor:
+    """Mean next-token cross-entropy over [B, S]. With ``chunks`` > 1 the
+    sequence is cut into ``chunks`` pieces, added in order, each piece's
+    [B, S/chunks, V] logits recomputed in backward rather than held."""
+    b, s, _ = hidden.shape
+    if chunks <= 1:
+        return _chunk_ce(hidden, unembed, labels) / (b * s)
+    if s % chunks:
+        raise ValueError(f"sequence {s} does not split into {chunks} logits chunks")
+    c = s // chunks
+    loss = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(chunks):
+        loss = loss + _remat(_chunk_ce, "full", hidden[:, i * c:(i + 1) * c], unembed,
+                             labels[:, i * c:(i + 1) * c])
+    return loss / (b * s)
+
+
+def loss_fn(model: LM, tokens: torch.Tensor, labels: torch.Tensor):
+    """(loss, ce, aux): the reference's ``ce + 0.01·aux``."""
+    hidden, aux = forward(model, tokens)
+    ce = _softmax_ce(hidden, model.unembed, labels, model.cfg.logits_chunk)
+    return ce + 0.01 * aux, ce, aux
 
 
 # --------------------------------------------------------------- prefill
@@ -356,6 +426,119 @@ def make_decode_step(cfg: LMConfig, mesh, global_batch: int, seq_len: int):
     return decode_step
 
 
+# --------------------------------------------------------------- train step
+
+def _jax_order(model: LM) -> list:
+    """(path, shape of the reference's leaf, tensors) of every leaf, in
+    ``jax.tree.flatten`` order of the reference's tree (dict keys sorted)."""
+    return sorted(model.named_leaves(), key=lambda leaf: leaf[0].split("."))
+
+
+def adamw(model: LM, lr, **kw) -> opt.AdamW:
+    """The reference's ``adamw(lr, **kw)`` over ``model``: AdamW over its
+    parameters, each decayed when the reference's leaf that holds it has two
+    dimensions or more. The reference stacks the layers, so a layer's
+    ``ln1`` and ``ln2`` ([D] here, leaves of [L, D] there) are decayed and
+    ``ln_f`` ([D] in both) is not."""
+    params, mask = [], []
+    for _, shape, tensors in _jax_order(model):
+        params += tensors
+        mask += [len(shape) >= 2] * len(tensors)
+    return opt.AdamW(params, lr, mask=mask, **kw)
+
+
+class TrainState(NamedTuple):
+    """An LM and its AdamW as the ``Trainer`` checkpoints them.
+    ``leaves()`` lists the reference's ``(params, OptState(step, mu, nu))``
+    in ``jax.tree.flatten`` order (``leaf_names``), as copies, every layer
+    leaf stacked [L, ...] as the reference holds it; ``load_leaves`` copies
+    such a list back into the layers and the optimizer. Unpacks as
+    ``model, tx = state``."""
+
+    model: LM
+    tx: opt.AdamW
+
+    @property
+    def device(self) -> torch.device:
+        return self.model.device
+
+    def _slots(self) -> list:
+        """(name, tensors, stacked) of every leaf, in flatten order."""
+        step, mu, nu = self.tx.state()
+        at = {id(p): i for i, p in enumerate(self.tx.params)}
+        order = _jax_order(self.model)
+        slots = [(f"params/{path}", tensors, path.startswith("layers."))
+                 for path, _, tensors in order]
+        slots.append(("opt/step", [step], False))
+        for name, moment in (("mu", mu), ("nu", nu)):
+            slots += [(f"opt/{name}/{path}", [moment[at[id(t)]] for t in tensors],
+                       path.startswith("layers.")) for path, _, tensors in order]
+        return slots
+
+    def leaf_names(self) -> list:
+        return [name for name, _, _ in self._slots()]
+
+    def leaves(self) -> list:
+        return [torch.stack([t.detach() for t in tensors]) if stacked
+                else tensors[0].detach().clone() for _, tensors, stacked in self._slots()]
+
+    @torch.no_grad()
+    def load_leaves(self, leaves) -> None:
+        slots = self._slots()
+        if len(leaves) != len(slots):
+            raise ValueError(f"{len(leaves)} leaves for a state of {len(slots)}")
+        for (name, tensors, stacked), src in zip(slots, leaves):
+            for t, s in zip(tensors, src if stacked else [src]):
+                if tuple(t.shape) != tuple(s.shape):
+                    raise ValueError(f"{name}: {tuple(s.shape)} does not fit {tuple(t.shape)}")
+                t.copy_(s)
+
+
+def make_train_step(cfg: LMConfig, mesh):
+    """One optimizer step: ``train_step(state, batch) -> (state, metrics)``
+    with ``state`` a ``TrainState`` (or any ``(model, tx)``), updated in
+    place, and ``batch`` ``{"tokens", "labels"}`` int [B, S]. With
+    ``cfg.grad_accum`` > 1 the batch is cut into that many microbatches
+    (each MoE layer's capacity from the microbatch's own tokens); each one's
+    gradients are added, cast to f32, into an f32 accumulator, which is
+    divided by their count and cast back to the parameters' dtype. Then the
+    gradients are clipped to global norm 1 and ``tx.update`` applies them.
+    Metrics: loss, ce, moe_aux (means over the microbatches) and grad_norm
+    (before the clip). The reference takes its optimizer here; the port's
+    is bound to a model's parameters, so it rides in the state."""
+    _check_mesh(mesh)
+    accum = max(1, cfg.grad_accum)
+
+    def train_step(state, batch):
+        model, tx = state
+        params = tx.params
+        tokens, labels = batch["tokens"], batch["labels"]
+        if accum == 1:
+            loss, ce, aux = loss_fn(model, tokens, labels)
+            grads = torch.autograd.grad(loss, params)
+        else:
+            b = tokens.shape[0]
+            if b % accum:
+                raise ValueError(f"batch {b} does not split into {accum} microbatches")
+            gacc = [torch.zeros_like(p, dtype=torch.float32) for p in params]
+            loss = ce = aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+            for toks, labs in zip(tokens.reshape(accum, b // accum, -1),
+                                  labels.reshape(accum, b // accum, -1)):
+                l_i, ce_i, aux_i = loss_fn(model, toks, labs)
+                for a, g in zip(gacc, torch.autograd.grad(l_i, params)):
+                    a.add_(g.float())
+                loss, ce, aux = loss + l_i.detach(), ce + ce_i.detach(), aux + aux_i.detach()
+            grads = [(a / accum).to(p.dtype) for a, p in zip(gacc, params)]
+            del gacc
+            loss, ce, aux = loss / accum, ce / accum, aux / accum
+        grads, gnorm = opt.clip_by_global_norm(grads, 1.0)
+        tx.update(grads)
+        return state, {"loss": loss.detach(), "ce": ce.detach(), "moe_aux": aux.detach(),
+                       "grad_norm": gnorm}
+
+    return train_step
+
+
 # --------------------------------------------------------------- bundle
 
 def cache_specs(cfg: LMConfig, global_batch: int, seq_len: int) -> dict:
@@ -365,17 +548,20 @@ def cache_specs(cfg: LMConfig, global_batch: int, seq_len: int) -> dict:
 
 def make_bundle(cfg: LMConfig, mesh) -> ModelBundle:
     """The LM's bundle over a 1 × 1 ``mesh``: ``init(generator)`` builds the
-    model on the mesh's device; ``prefill`` and ``decode`` steps are served,
-    ``train`` raises (LM training is not ported yet)."""
+    model on the mesh's device; ``optimizer(model)`` is the reference's
+    AdamW (cosine schedule 3e-4, 100 warm-up steps of 10,000, decay 0.1);
+    the ``train`` step is ``make_train_step``'s, called with
+    ``TrainState(model, optimizer(model))``; ``prefill`` and ``decode`` are
+    served."""
     _check_mesh(mesh)
     device = mesh.devices[0]
 
     def step(shape: ShapeSpec) -> StepDef:
         s, gb = shape["seq_len"], shape["global_batch"]
         if shape.kind == "train":
-            raise NotImplementedError(
-                "LM training (make_train_step with grad_accum, chunked CE, remat) is not "
-                "ported yet")
+            return StepDef(fn=make_train_step(cfg, mesh),
+                           input_specs={"tokens": sds((gb, s), torch.int32),
+                                        "labels": sds((gb, s), torch.int32)})
         if shape.kind == "prefill":
             return StepDef(fn=make_prefill_step(cfg, mesh),
                            input_specs={"tokens": sds((gb, s), torch.int32)})
@@ -392,4 +578,6 @@ def make_bundle(cfg: LMConfig, mesh) -> ModelBundle:
         init=lambda generator, shape=None: init_params(cfg, generator, device),
         param_specs=lambda shape=None: param_specs(cfg),
         step=step,
+        optimizer=lambda model: adamw(model, opt.cosine_schedule(3e-4, warmup=100, total=10_000),
+                                      weight_decay=0.1),
     )

@@ -16,6 +16,12 @@ into ``init_state``'s own tensors: a step function that updates a model and
 an optimizer in place (whose tensors ``init_state`` lists, as
 ``core.train_probing.train_state`` gives them) resumes from the restored
 values. A step function that returns new tensors works as well.
+
+Where the checkpoint's layout is not the live tensors' (the LM's layers are
+stacked [L, ...] in the reference's tree and held a layer each here),
+``init_state`` is a state object instead of a list: ``leaves()`` lists what
+a checkpoint holds, ``load_leaves(leaves)`` copies a restored list back, and
+``device`` names where batches go (``models.transformer.TrainState``).
 """
 from __future__ import annotations
 
@@ -29,7 +35,8 @@ class Trainer:
     def __init__(
         self,
         step_fn: Callable,                 # (state, batch) -> (state, metrics)
-        init_state: list,                  # flat list of tensors
+        init_state,                        # flat list of tensors, or a state object
+                                           # (leaves, load_leaves, device)
         pipeline,                          # .batch_at(step) -> dict of np arrays
         ckpt_manager=None,
         ckpt_every: int = 50,
@@ -40,18 +47,22 @@ class Trainer:
         self.ckpt = ckpt_manager
         self.ckpt_every = ckpt_every
         self.log_every = log_every
+        listed = not hasattr(init_state, "load_leaves")
         self.device = next((t.device for t in init_state if isinstance(t, torch.Tensor)
-                            and t.ndim > 0), torch.device("cpu"))
+                            and t.ndim > 0), torch.device("cpu")) if listed else init_state.device
         self.history: list[dict] = []
 
         self.state = init_state
         self.start_step = 0
         if self.ckpt is not None:
-            restored, step, extra = self.ckpt.restore(init_state)
+            restored, step, extra = self.ckpt.restore(_leaves(init_state))
             if restored is not None:
-                with torch.no_grad():
-                    for dst, src in zip(init_state, restored):
-                        dst.copy_(src)
+                if listed:
+                    with torch.no_grad():
+                        for dst, src in zip(init_state, restored):
+                            dst.copy_(src)
+                else:
+                    init_state.load_leaves(restored)
                 self.start_step = step
                 self.history = extra.get("history", [])
 
@@ -75,6 +86,12 @@ class Trainer:
                 t0 = time.time()
                 self.history.append(m)
             if self.ckpt is not None and (step % self.ckpt_every == 0 or step == n_steps):
-                self.ckpt.save(step, self.state, extra={"history": self.history[-200:]})
+                self.ckpt.save(step, _leaves(self.state), extra={"history": self.history[-200:]})
         self.start_step = step
         return self.state, self.history
+
+
+def _leaves(state) -> list:
+    """What a checkpoint of ``state`` holds: a list state itself, or a state
+    object's ``leaves()``."""
+    return state.leaves() if hasattr(state, "load_leaves") else state

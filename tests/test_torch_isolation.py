@@ -33,7 +33,8 @@ def test_no_module_imports_jax_or_the_jax_package():
                  "models/api.py", "models/layers.py", "models/transformer.py",
                  "configs/stablelm_3b.py", "configs/deepseek_coder_33b.py",
                  "configs/mistral_large_123b.py", "configs/moonshot_v1_16b_a3b.py",
-                 "configs/qwen3_moe_235b_a22b.py", "data/smoke.py"):
+                 "configs/qwen3_moe_235b_a22b.py", "data/smoke.py", "utils/tree.py",
+                 "train/optimizer.py", "launch/train.py", "examples/lm_pretrain.py"):
         assert PKG / part in files
     bad = [(str(f.relative_to(PKG)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]
@@ -54,7 +55,9 @@ def test_importing_the_port_leaves_jax_unloaded():
             "repro_torch.models.transformer, repro_torch.configs, repro_torch.data.smoke, "
             "repro_torch.configs.stablelm_3b, repro_torch.configs.deepseek_coder_33b, "
             "repro_torch.configs.mistral_large_123b, repro_torch.configs.moonshot_v1_16b_a3b, "
-            "repro_torch.configs.qwen3_moe_235b_a22b; "
+            "repro_torch.configs.qwen3_moe_235b_a22b, repro_torch.utils.tree, "
+            "repro_torch.train.optimizer, repro_torch.launch.train, "
+            "repro_torch.examples.lm_pretrain; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(PKG.parent))

@@ -1,10 +1,10 @@
 """The port's training substrate against the JAX reference, on the CPU:
 ``CheckpointManager`` (round trip, GC at ``keep``, partial writes ignored:
 ``tests/test_substrate.py:70-90``), checkpoints written by one package and
-restored by the other, ``ProbingPipeline`` batches (bit for bit), and the
-``Trainer``'s crash-and-restart contract (``tests/test_substrate.py:101-117``):
-a run that fails after an update and restarts from its last checkpoint ends
-bit-equal to an uninterrupted run.
+restored by the other (bfloat16 leaves too), ``ProbingPipeline`` batches
+(bit for bit), and the ``Trainer``'s crash-and-restart contract
+(``tests/test_substrate.py:101-117``): a run that fails after an update and
+restarts from its last checkpoint ends bit-equal to an uninterrupted run.
 
 A probing-model run that the JAX Trainer starts and the port's Trainer
 resumes from the JAX checkpoint is held against a JAX run of all its steps,
@@ -25,7 +25,7 @@ from repro.data.pipeline import PipelineSpec as JaxPipelineSpec
 from repro.data.pipeline import ProbingPipeline as JaxProbingPipeline
 from repro.train import optimizer as jopt
 from repro.train.trainer import Trainer as JaxTrainer
-from repro_torch.ckpt.checkpoint import CheckpointManager
+from repro_torch.ckpt.checkpoint import CheckpointManager, load_leaves, read_manifest
 from repro_torch.core import probing as tprobing
 from repro_torch.core.train_probing import make_train_step, state_leaf_names, train_state
 from repro_torch.data.pipeline import PipelineSpec, ProbingPipeline
@@ -145,6 +145,58 @@ def test_jax_checkpoint_restores_in_the_port_and_back(tmp_path, probe_data):
     for got, want in zip(jax.tree.leaves(back), jax.tree.leaves(jstate)):
         assert np.asarray(got).dtype == np.asarray(want).dtype
         np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+
+
+def _bf16_values(shape, seed):
+    """bfloat16 values with every exponent range, subnormals, ±0 and ±inf."""
+    x = np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+    x = x * np.float32(2.0) ** np.random.default_rng(seed + 1).integers(-130, 120, shape)
+    x.reshape(-1)[:4] = [0.0, -0.0, np.inf, -np.inf]
+    return torch.from_numpy(x).to(torch.bfloat16)
+
+
+def test_bf16_checkpoint_round_trip_is_exact(tmp_path):
+    """The port writes a bfloat16 tensor upcast to f32 (npy has no bf16) and
+    restores it into a bfloat16 template bit for bit."""
+    t = _bf16_values((5, 7), 0)
+    cm = CheckpointManager(tmp_path)
+    cm.save(1, [t, torch.arange(3)])
+    _, meta = read_manifest(tmp_path)
+    assert meta["dtypes"] == ["float32", "int64"]
+    (got, ints), step, _ = cm.restore([torch.zeros(5, 7, dtype=torch.bfloat16),
+                                       torch.zeros(3, dtype=torch.int64)])
+    assert step == 1 and got.dtype == torch.bfloat16
+    assert torch.equal(got.view(torch.int16), t.view(torch.int16))
+    assert torch.equal(ints, torch.arange(3))
+
+
+def test_bf16_checkpoints_cross_between_the_packages(tmp_path):
+    """The reference writes a bfloat16 leaf as 2-byte records beside the
+    manifest dtype "bfloat16": the port reads its bits (as f32 from
+    ``load_leaves``, as bfloat16 into a bfloat16 template). A port
+    checkpoint of bfloat16 tensors restores in the reference (which casts
+    the f32 file to its template's bfloat16)."""
+    t = _bf16_values((4, 6), 2)
+    j = jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+    JaxCheckpointManager(tmp_path / "j").save(3, {"a": j, "b": jnp.arange(2)})
+    step_dir, meta = read_manifest(tmp_path / "j")
+    assert meta["dtypes"][0] == "bfloat16"
+    raw = np.load(step_dir / "leaf_00000.p0.npy")
+    assert raw.dtype.kind == "V" and raw.dtype.itemsize == 2
+    f32, _ = load_leaves(step_dir, meta)
+    assert f32.dtype == np.float32
+    np.testing.assert_array_equal(f32, t.float().numpy())
+    (got, b), step, _ = CheckpointManager(tmp_path / "j").restore(
+        [torch.zeros(4, 6, dtype=torch.bfloat16), torch.zeros(2, dtype=torch.int32)])
+    assert step == 3 and torch.equal(got.view(torch.int16), t.view(torch.int16))
+    assert b.tolist() == [0, 1]
+
+    CheckpointManager(tmp_path / "t").save(4, [t, torch.arange(2, dtype=torch.int32)])
+    back, step, _ = JaxCheckpointManager(tmp_path / "t").restore(
+        {"a": jnp.zeros((4, 6), jnp.bfloat16), "b": jnp.zeros(2, jnp.int32)})
+    assert step == 4 and back["a"].dtype == jnp.bfloat16
+    np.testing.assert_array_equal(np.asarray(back["a"]).view(np.uint16),
+                                  np.asarray(j).view(np.uint16))
 
 
 # ------------------------------------------------------------ pipeline

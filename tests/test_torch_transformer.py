@@ -59,6 +59,7 @@ def _jax_shape(shape: ShapeSpec) -> JaxShapeSpec:
 
 def _np(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
+        x = x.detach()
         return (x.float() if x.is_floating_point() else x).numpy()
     x = np.asarray(x)
     return x.astype(np.float32) if jnp.issubdtype(x.dtype, jnp.floating) else x
@@ -207,8 +208,9 @@ def test_forward_matches_jax(arch, q_offset):
         jh, jaux = jax.jit(lambda p, t: jtr.forward(p, t, c["jcfg"], JMESH, q_offset=q_offset))(
             c["params"], jnp.asarray(toks))
     th, taux = ttr.forward(c["model"], torch.from_numpy(toks), q_offset=q_offset)
+    assert th.requires_grad                     # the training forward: autograd records
     np.testing.assert_allclose(_np(jh), _np(th), rtol=0, atol=F32_ATOL)
-    np.testing.assert_allclose(float(jaux), float(taux), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(float(jaux), float(taux.detach()), rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -250,7 +252,7 @@ def test_specs_and_init(arch):
     model = build_bundle(smoke, TMESH).init(torch.Generator().manual_seed(0))
     assert model.device.type == "cpu" and all(
         bool((lp["ln1"] == 1).all()) for lp in model.layers)
-    wq = model.layers[0]["wq"].float()
+    wq = model.layers[0]["wq"].detach().float()
     assert abs(float(wq.std()) * np.sqrt(smoke.d_model) - 1.0) < 0.1
 
 
@@ -279,10 +281,23 @@ def test_registry_matches_jax():
 
 
 def test_lm_bundle_scope():
-    """The LM's train kind and meshes other than 1 × 1 raise."""
-    cfg = get_smoke("stablelm-3b")[0]
-    with pytest.raises(NotImplementedError, match="training"):
-        build_bundle(cfg, TMESH).step(get_smoke("stablelm-3b")[1][0])
+    """Every LM kind of the reference builds a step (train: the train step
+    over [gb, s] int32 tokens and labels, the bundle's optimizer the
+    reference's AdamW); meshes other than 1 × 1 raise."""
+    cfg, shapes = get_smoke("stablelm-3b")
+    bundle = build_bundle(cfg, TMESH)
+    train = bundle.step(shapes[0])
+    assert {n: (tuple(t.shape), t.dtype) for n, t in train.input_specs.items()} == {
+        n: ((4, 64), torch.int32) for n in ("tokens", "labels")}
+    model = bundle.init(torch.Generator().manual_seed(0))
+    tx = bundle.optimizer(model)
+    assert tx.weight_decay == 0.1 and tx.lr_fn(100) == pytest.approx(3e-4)
+    assert len(tx.params) == sum(1 for _ in model.parameters())
+    state, metrics = train.fn(ttr.TrainState(model, tx), make_smoke_inputs(
+        cfg, shapes[0], TMESH, seed=0)["batch"])
+    assert tx.step == 1 and set(metrics) == {"loss", "ce", "moe_aux", "grad_norm"}
+    with pytest.raises(ValueError, match="shape kind"):
+        bundle.step(ShapeSpec("x", "lira_serve", {"seq_len": 1, "global_batch": 1}))
     with pytest.raises(NotImplementedError, match="one device"):
         build_bundle(cfg, make_test_mesh(1, 2, device="cpu"))
     with pytest.raises(TypeError):
@@ -299,6 +314,11 @@ def test_lm_smoke_train_inputs_match_jax():
 
 
 def test_lm_entry_points_raise_without_cuda(monkeypatch):
+    """The model, the train step's mesh, the training launcher and the
+    pre-training example run on the card unless asked for the CPU."""
+    from repro_torch.examples import lm_pretrain
+    from repro_torch.launch import train as launch_train
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_smoke("stablelm-3b")[0]
     tree = ttr.to_jax_params(_case("stablelm_3b", "float32")["model"])
@@ -307,6 +327,12 @@ def test_lm_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ttr.from_jax_params(tree, cfg)
     assert ttr.from_jax_params(tree, cfg, "cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ttr.make_train_step(cfg, make_test_mesh())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        launch_train.main(["--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        lm_pretrain.main(steps=1)
 
 
 @pytest.mark.parametrize("arch", ["lira_ann", "lira_ann_q"])
