@@ -222,9 +222,43 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                checkpoint byte-equal to an uninterrupted run's, and python
                -m repro_torch.examples.lm_pretrain (200 steps, its loss
                falls).
-Phases 20 and 21 launch none of the kernels: the LM's attention is the
-reference's plain block scan, its loss and optimizer plain XLA, and no
-Pallas kernel lies on their path.
+ 22. recsys  — after 21, on a freed card: deepfm, autoint, mind and
+               dlrm-rm2, each (a) at its full CONFIG (1,000,000 ids a field)
+               through build_bundle(get_config(...), make_test_mesh(1, 1))
+               with data/smoke's recsys inputs: serve_p99 [512], serve_bulk
+               [262,144] and retrieval_cand (1,000,000 candidates scored in
+               chunks of 65,536, the top 100), each timed after an untimed
+               run it must equal bit for bit, then train_batch [65,536]: a
+               warm-up and two timed steps, losses and grad_norms finite;
+               ms and examples/s beside the bound (the larger of the bytes
+               at 3.35 TB/s and the operations at 67 TFLOP/s f32), peak
+               memory; dlrm-rm2's step taken apart (forward + backward, the
+               clip, AdamW); (b) at full widths with vocab_per_field
+               100,000, one set of parameters on the card and the CPU:
+               serve scores of 512 within 1e-5, retrieval over 100,000
+               candidates (top-100 values within 1e-5, ids equal up to
+               ties), one train step of 4,096 (updated parameters within
+               1e-4, loss and grad_norm within 1e-4 of max(1, |value|));
+               (c) that step run twice on the card
+               equal bit for bit; (d) python -m repro_torch.launch.train at
+               deepfm's and dlrm-rm2's SMOKE configs failed at step 55 and
+               restarted to 60, the last checkpoint byte-equal to an
+               uninterrupted run's.
+ 23. graph   — after 22: DimeNet's CONFIG (6 blocks, hidden 128, bilinear 8,
+               spherical 7, radial 6, remat full) on full_graph_sm and
+               molecule from build_graph_batch: real and padded edges and
+               triplets, a warm-up and three timed steps, ms a step and
+               triplets/s beside the bound by operations, peak memory,
+               losses finite, one step profiled (device busy, top
+               operators); (b) one step on molecule card = CPU within 1e-4
+               (the metrics of max(1, |value|)); (c) on the card remat
+               none = full and a step run twice, bit for bit. minibatch_lg and ogb_products are not
+               run: the reference's data path forms an [N, N, 3] array
+               (347 GB at 169,984 nodes).
+Phases 20-23 launch none of the kernels: the LM's attention is the
+reference's plain block scan, its loss and optimizer plain XLA, the recsys
+family's embedding bag a gather and sum and DimeNet's message passing
+segment sums, and no Pallas kernel lies on their path.
 Phases 7-12, 15-16 and 17 zero the launch counters just before each path and
 read them just after. Every matmul runs in full f32 (TF32 off for matmul and cuDNN),
 so the plain versions are exact oracles.
@@ -2821,45 +2855,56 @@ def lm_train_determinism(what, cfg, dev, *, resume: bool) -> None:
     log(msg + f" ({time.perf_counter() - t0:.1f} s)")
 
 
-def lm_launch_phase() -> None:
-    """(e) The launcher at stablelm-3b's SMOKE config: failed at step
-    LM_LAUNCH_FAIL (after the step-50 checkpoint), restarted to
-    LM_LAUNCH_STEPS, its last checkpoint equal file for file to an
-    uninterrupted run's; lm_pretrain at its own 200 steps, whose loss falls."""
+def launcher_restart(arch: str, tag: str) -> tuple:
+    """python -m repro_torch.launch.train at ``arch``'s SMOKE config, failed
+    at step LM_LAUNCH_FAIL (after the step-50 checkpoint), restarted to
+    LM_LAUNCH_STEPS, and run again uninterrupted: the two last checkpoints
+    must be equal file for file. Returns (their step, their leaf count)."""
     import shutil
 
     from repro_torch.ckpt.checkpoint import load_leaves, read_manifest
 
     dirs = [os.path.join(ROOT, "build", f"chip_smoke_launch_{n}") for n in ("a", "b")]
-    pre = os.path.join(ROOT, "build", "chip_smoke_lm_pretrain")
-    for d in dirs + [pre]:
+    for d in dirs:
         shutil.rmtree(d, ignore_errors=True)
-    args = ["--arch", "stablelm-3b", "--steps", str(LM_LAUNCH_STEPS)]
+    args = ["--arch", arch, "--steps", str(LM_LAUNCH_STEPS)]
     text = run_module("repro_torch.launch.train", *args, "--ckpt-dir", dirs[0], "--fail-at",
-                      str(LM_LAUNCH_FAIL), tag="lmtrain train", expect_fail=True)
+                      str(LM_LAUNCH_FAIL), tag=tag, expect_fail=True)
     if f"simulated failure at step {LM_LAUNCH_FAIL}" not in text:
-        raise AssertionError("lmtrain the launcher did not fail as asked")
-    text = run_module("repro_torch.launch.train", *args, "--ckpt-dir", dirs[0],
-                      tag="lmtrain train")
+        raise AssertionError(f"{tag} the launcher did not fail as asked")
+    text = run_module("repro_torch.launch.train", *args, "--ckpt-dir", dirs[0], tag=tag)
     if "starting at step 50" not in text:
-        raise AssertionError("lmtrain the restart did not resume at step 50")
-    run_module("repro_torch.launch.train", *args, "--ckpt-dir", dirs[1], tag="lmtrain train")
+        raise AssertionError(f"{tag} the restart did not resume at step 50")
+    run_module("repro_torch.launch.train", *args, "--ckpt-dir", dirs[1], tag=tag)
     files = []
     for d in dirs:
         step_dir, meta = read_manifest(d)
         files.append((meta["step"], load_leaves(step_dir, meta)))
     (sa, la), (sb, lb) = files
     if sa != sb or len(la) != len(lb) or any(x.tobytes() != y.tobytes() for x, y in zip(la, lb)):
-        raise AssertionError("lmtrain the restarted run's last checkpoint differs from the "
+        raise AssertionError(f"{tag} the restarted run's last checkpoint differs from the "
                              "uninterrupted run's")
+    for d in dirs:
+        shutil.rmtree(d, ignore_errors=True)
+    return sa, len(la)
+
+
+def lm_launch_phase() -> None:
+    """(e) The launcher at stablelm-3b's SMOKE config, failed and restarted
+    (``launcher_restart``); lm_pretrain at its own 200 steps, whose loss
+    falls."""
+    import shutil
+
+    sa, n_leaves = launcher_restart("stablelm-3b", "lmtrain train")
+    pre = os.path.join(ROOT, "build", "chip_smoke_lm_pretrain")
+    shutil.rmtree(pre, ignore_errors=True)
     text = run_module("repro_torch.examples.lm_pretrain", "--ckpt-dir", pre,
                       tag="lmtrain lm_pretrain")
     if not text.rstrip().endswith("ok"):
         raise AssertionError("lmtrain lm_pretrain did not end with ok")
-    for d in dirs + [pre]:
-        shutil.rmtree(d, ignore_errors=True)
+    shutil.rmtree(pre, ignore_errors=True)
     log(f"lmtrain launcher: failed at step {LM_LAUNCH_FAIL}, resumed at 50, its step-{sa} "
-        f"checkpoint ({len(la)} leaves) equal byte for byte to an uninterrupted run's; "
+        f"checkpoint ({n_leaves} leaves) equal byte for byte to an uninterrupted run's; "
         f"lm_pretrain's loss fell")
 
 
@@ -2926,6 +2971,441 @@ def lm_train_phase(smi, dev="cuda") -> dict:
         torch.cuda.empty_cache()
     lm_launch_phase()
     log(f"lmtrain phase {time.perf_counter() - t_phase:.1f} s; {smi}")
+    return found
+
+
+# ---------------------------------------------------------------- recsys
+
+REC_ARCHS = ("deepfm", "autoint", "mind", "dlrm-rm2")
+# (a): timed runs after one untimed run, each equal to it bit for bit
+REC_SERVE_RUNS = {"serve_p99": 10, "serve_bulk": 3, "retrieval_cand": 2}
+REC_TRAIN_STEPS = 3                   # a warm-up and two timed steps
+REC_GATE_VOCAB = 100_000              # (b): every width the CONFIG's, the tables cut
+REC_GATE_SERVE, REC_GATE_CANDIDATES, REC_GATE_TRAIN = 512, 100_000, 4_096
+REC_SERVE_ATOL, REC_TRAIN_ATOL = 1e-5, 1e-4
+# a metric (loss, grad_norm) is held to the tolerance times max(1, |value|):
+# DimeNet's random-init grad_norm of ~3,600 has an f32 step of 2.4e-4
+REC_GATE_TX = dict(lr=1e-2, eps=1e-3)  # tests/test_torch_recsys.py's: a gate, not a flat 2·lr
+REC_LAUNCH = ("deepfm", "dlrm-rm2")    # (d)
+
+
+def rec_flops(cfg, b: int) -> float:
+    """A forward's operations over ``b`` examples: 2 a multiply-add of every
+    product (the MLPs, AutoInt's projections and attention, DLRM's pairwise
+    dots over all (F+1)² pairs, MIND's bilinear map, routing and head), the
+    FM term's 4·F·dim. Gathers and bag sums are counted as bytes."""
+    def mlp(sizes):
+        return sum(2 * a * c for a, c in zip(sizes[:-1], sizes[1:]))
+
+    f, d = cfg.n_sparse, cfg.embed_dim
+    if cfg.interaction == "fm":
+        per = mlp((f * d, *cfg.mlp, 1)) + 4 * f * d
+    elif cfg.interaction == "self-attn":
+        da, per = cfg.d_attn * cfg.n_heads, 0
+        for i in range(cfg.n_attn_layers):
+            per += 4 * 2 * f * (d if i == 0 else da) * da + 2 * 2 * f * f * da
+        per += mlp((f * da, 1))
+    elif cfg.interaction == "multi-interest":
+        t, k = cfg.hist_len, cfg.n_interests
+        per = (2 * t * d * d + cfg.capsule_iters * 2 * 2 * k * t * d
+               + k * mlp((d, 2 * d, d)) + 2 * k * d)
+    else:
+        per = mlp(tuple(cfg.bot_mlp)) + 2 * (f + 1) ** 2 * d + mlp(
+            ((f + 1) * f // 2 + cfg.bot_mlp[-1], *cfg.top_mlp))
+    return float(per) * b
+
+
+def rec_bytes(cfg, b: int, n_params: int, n_table: int, train: bool) -> float:
+    """The bytes a step over ``b`` examples must move: its inputs and the
+    rows it gathers (MIND: T + 1 rows an example; DeepFM's wide rows too),
+    every non-table parameter once, the scores; in training the gathered
+    rows' gradients written, and over every parameter a read of the
+    gradient for the global norm and AdamW's read of the parameter, the
+    gradient and both moments and write of the parameter and both moments
+    (8 passes of 4 bytes)."""
+    f, d, nnz = cfg.n_sparse, cfg.embed_dim, cfg.nnz
+    if cfg.interaction == "multi-interest":
+        rows = b * (cfg.hist_len + 1) * d * 4
+        inputs = b * (cfg.hist_len * 8 + 4)
+    else:
+        rows = b * f * nnz * (d + (1 if cfg.interaction == "fm" else 0)) * 4
+        inputs = b * (f * nnz + cfg.n_dense) * 4
+    total = inputs + rows + (n_params - n_table) * 4 + b * 4 + b * 4
+    if train:
+        total += rows + 8 * 4 * n_params
+    return float(total)
+
+
+def rec_bound(cfg, b: int, n_params: int, n_table: int, train: bool) -> dict:
+    ops = rec_flops(cfg, b) * (3 if train else 1)       # backward: twice the forward
+    nbytes = rec_bytes(cfg, b, n_params, n_table, train)
+    t_ops, t_bytes = ops / PEAK_OPS["float32"], nbytes / HBM_BYTES_PER_S
+    return dict(bound_ms=1e3 * max(t_ops, t_bytes), bound_by="operations" if t_ops > t_bytes
+                else "bytes", gflop=ops / 1e9, gbytes=nbytes / 1e9)
+
+
+def rec_batches(cfg, shape, mesh, seeds):
+    """data/smoke's recsys batches of ``shape``, one a seed, on the card."""
+    from repro_torch.data.smoke import make_smoke_inputs
+
+    return [make_smoke_inputs(cfg, shape, mesh, seed=s)["batch"] for s in seeds]
+
+
+def metric_err(a, b) -> float:
+    """Largest |a - b| / max(1, |b|) over two metric tensors."""
+    return float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
+
+
+def host_ms(fn) -> tuple:
+    """(fn's result, its ms on the host clock between synchronizes)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def same_out(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(a if isinstance(a, tuple) else (a,),
+                                                 b if isinstance(b, tuple) else (b,)))
+
+
+def rec_full(arch, dev, smi) -> dict:
+    """(a) ``arch`` at its full CONFIG: each serve shape timed after an
+    untimed run (every timed output equal to it bit for bit), then
+    train_batch: a warm-up and two timed steps; dlrm-rm2's step taken
+    apart."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import build_bundle
+    from repro_torch.models import recsys
+    from repro_torch.models.api import TrainState
+    from repro_torch.train import optimizer as opt
+
+    cfg, shapes = get_config(arch)
+    mesh = make_test_mesh(1, 1, device=dev)
+    bundle = build_bundle(cfg, mesh)
+    model, t_init = host_ms(lambda: bundle.init(torch.Generator(device=dev).manual_seed(0)))
+    n_params = sum(p.numel() for p in model.parameters())
+    n_table = sum(model[k].numel() for k in ("tables", "wide") if k in model.defs)
+    log(f"recsys {arch}: {n_params / 1e6:.2f} M parameters ({n_table / 1e6:.2f} M in the "
+        f"tables, {4 * n_params / 2**30:.2f} GiB f32) made on the card in {t_init:.0f} ms")
+    found = {"n_params": n_params}
+    for shape in shapes:
+        b = shape["batch"] if shape.kind != "retrieval" else shape["n_candidates"]
+        fn = bundle.step(shape).fn
+        if shape.kind == "rec_train":
+            continue
+        t0 = time.perf_counter()
+        (batch,) = rec_batches(cfg, shape, mesh, [1])
+        t_data = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        first, _ = host_ms(lambda: fn(model, batch))
+        times = []
+        for _ in range(REC_SERVE_RUNS[shape.name]):
+            out, ms = host_ms(lambda: fn(model, batch))
+            if not same_out(out, first):
+                raise AssertionError(f"recsys {arch} {shape.name}: a rerun differs")
+            times.append(ms)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        score = first[0] if shape.kind == "retrieval" else first
+        if not bool(torch.isfinite(score).all()):
+            raise AssertionError(f"recsys {arch} {shape.name}: scores not finite")
+        if shape.kind == "retrieval":
+            ids = first[1]
+            if ids.dtype != torch.int32 or ids.numel() != 100 or ids.unique().numel() != 100:
+                raise AssertionError(f"recsys {arch}: retrieval ids {ids.dtype}, "
+                                     f"{ids.unique().numel()} distinct")
+        ms = float(np.median(times))
+        bound = rec_bound(cfg, b, n_params, n_table, train=False)
+        found[shape.name] = dict(ms=ms, ex_s=b / ms * 1e3, peak_gib=peak, **bound)
+        log(f"recsys {arch} {shape.name} [{b}]: median {ms:.3f} ms of {len(times)} "
+            f"({b / ms * 1e3:,.0f} examples/s), each equal bit for bit to an untimed run; "
+            f"bound {bound['bound_ms']:.3f} ms by {bound['bound_by']} ({bound['gflop']:.1f} "
+            f"GFLOP at 67 TFLOP/s, {bound['gbytes']:.2f} GB at 3.35 TB/s); peak {peak:.2f} GiB "
+            f"(chunks of {recsys.SERVE_CHUNK} rows); inputs made in {t_data:.1f} s; {smi}")
+        del batch, first, out, score
+    shape = next(s for s in shapes if s.kind == "rec_train")
+    b = shape["batch"]
+    batches = rec_batches(cfg, shape, mesh, range(2, 2 + REC_TRAIN_STEPS))
+    state = TrainState(model, bundle.optimizer(model))
+    fn = bundle.step(shape).fn
+    torch.cuda.reset_peak_memory_stats()
+    times, metrics = [], []
+    for batch in batches:
+        (_, m), ms = host_ms(lambda: fn(state, batch))
+        times.append(ms)
+        metrics.append({k: float(v) for k, v in m.items()})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not all(math.isfinite(v) for m in metrics for v in m.values()):
+        raise AssertionError(f"recsys {arch} train: metrics {metrics}")
+    ms = float(np.median(times[1:]))
+    bound = rec_bound(cfg, b, n_params, n_table, train=True)
+    found["train_batch"] = dict(ms=ms, warmup_ms=times[0], ex_s=b / ms * 1e3, peak_gib=peak,
+                                metrics=metrics, **bound)
+    log(f"recsys {arch} train_batch [{b}]: median {ms:.1f} ms a step of {len(times) - 1} after a "
+        f"warm-up of {times[0]:.1f} ({b / ms * 1e3:,.0f} examples/s); bound "
+        f"{bound['bound_ms']:.3f} ms by {bound['bound_by']} ({bound['gflop']:.1f} GFLOP, "
+        f"{bound['gbytes']:.2f} GB); peak {peak:.2f} GiB; loss "
+        f"{[round(m['loss'], 5) for m in metrics]}, grad_norm "
+        f"{[round(m['grad_norm'], 5) for m in metrics]}; {smi}")
+    if arch == "dlrm-rm2":
+        model_, tx = state
+        batch = batches[-1]
+
+        def fwd_bwd():
+            loss = recsys.bce_loss(recsys.forward(model_, batch), batch["label"])
+            return torch.autograd.grad(loss, tx.params)
+
+        grads, fb_ms = host_ms(fwd_bwd)
+        (clipped, _), clip_ms = host_ms(lambda: opt.clip_by_global_norm(grads, 1.0))
+        del grads
+        _, adam_ms = host_ms(lambda: tx.update(clipped))
+        del clipped
+        found["parts"] = dict(fwd_bwd_ms=fb_ms, clip_ms=clip_ms, adamw_ms=adam_ms)
+        log(f"recsys {arch} a train step's parts alone: forward + backward {fb_ms:.1f} ms, "
+            f"the clip {clip_ms:.1f} ms, AdamW {adam_ms:.1f} ms ({len(tx.params)} tensors, "
+            f"{n_params / 1e9:.3f} B parameters); the step {ms:.1f} ms; {smi}")
+    del state, model, bundle, batches
+    torch.cuda.empty_cache()
+    return found
+
+
+def rec_gate(arch, dev) -> dict:
+    """(b) ``arch`` at its full widths with vocab_per_field REC_GATE_VOCAB,
+    one set of parameters on the card and the CPU: serve scores of
+    REC_GATE_SERVE examples within REC_SERVE_ATOL, retrieval over
+    REC_GATE_CANDIDATES candidates (the top 100's values within
+    REC_SERVE_ATOL, ids equal up to ties: where they differ, the CPU's score
+    of the card's id equals the CPU's value of that rank within it), one
+    train step of REC_GATE_TRAIN examples (metrics and updated parameters
+    within REC_TRAIN_ATOL, the metrics relative to max(1, |value|)); (c)
+    that step run twice on the card from one state, equal bit for bit."""
+    import copy
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import recsys
+    from repro_torch.models.api import ShapeSpec, TrainState, adamw
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch)[0], vocab_per_field=REC_GATE_VOCAB)
+    meshes = {d: make_test_mesh(1, 1, device=d) for d in (dev, "cpu")}
+    init = recsys.init_params(cfg, torch.Generator(device=dev).manual_seed(1), dev)
+    models = {dev: init, "cpu": copy.deepcopy(init).to("cpu")}
+
+    def inputs(shape, seed):
+        (b,) = rec_batches(cfg, shape, meshes["cpu"], [seed])
+        return {dev: {k: v.to(dev) for k, v in b.items()}, "cpu": b}
+
+    serve = inputs(ShapeSpec("gate_serve", "rec_serve", {"batch": REC_GATE_SERVE}), 7)
+    s = {d: recsys.make_serve_step(cfg, meshes[d])(models[d], serve[d]).cpu() for d in meshes}
+    serve_err = float((s[dev] - s["cpu"]).abs().max())
+    cands = inputs(ShapeSpec("gate_retrieval", "retrieval",
+                             {"batch": 1, "n_candidates": REC_GATE_CANDIDATES}), 8)
+    top = {d: [t.cpu() for t in recsys.make_serve_step(cfg, meshes[d], topk=100)(
+        models[d], cands[d])] for d in meshes}
+    scores = recsys.make_serve_step(cfg, meshes["cpu"])(models["cpu"], cands["cpu"])
+    (cv, ci), (hv, hi) = top[dev], top["cpu"]
+    differ = ci != hi
+    ret_err = float((cv - hv).abs().max())
+    tie_err = float((scores[ci[differ].long()] - hv[differ]).abs().max()) if differ.any() else 0.0
+    if not (serve_err <= REC_SERVE_ATOL and ret_err <= REC_SERVE_ATOL and tie_err <= REC_SERVE_ATOL
+            and ci.unique().numel() == 100):
+        raise AssertionError(f"recsys {arch} gate: card != CPU: serve {serve_err}, retrieval "
+                             f"values {ret_err}, {int(differ.sum())} ids differ by {tie_err}")
+    train = inputs(ShapeSpec("gate_train", "rec_train", {"batch": REC_GATE_TRAIN}), 9)
+    step = {d: recsys.make_train_step(cfg, meshes[d]) for d in meshes}
+
+    def one_step(d, model):
+        _, m = step[d](TrainState(model, adamw(model, **REC_GATE_TX)), train[d])
+        return torch.stack([m["loss"], m["grad_norm"]]).cpu(), model
+
+    runs = [one_step(dev, copy.deepcopy(init)) for _ in range(2)]
+    if not torch.equal(runs[0][0], runs[1][0]) or not all(
+            torch.equal(x, y) for x, y in zip(runs[0][1].parameters(), runs[1][1].parameters())):
+        raise AssertionError(f"recsys {arch}: two runs of one train step on the card differ")
+    m_cpu, cpu_after = one_step("cpu", models["cpu"])
+    m_err = metric_err(runs[0][0], m_cpu)
+    p_err = max(float((x.detach().cpu() - y.detach()).abs().max())
+                for x, y in zip(runs[0][1].parameters(), cpu_after.parameters()))
+    if not (m_err <= REC_TRAIN_ATOL and p_err <= REC_TRAIN_ATOL):
+        raise AssertionError(f"recsys {arch} gate: train step card != CPU: metrics "
+                             f"{runs[0][0].tolist()} vs {m_cpu.tolist()}, parameters by {p_err}")
+    log(f"recsys {arch} gate (vocab_per_field {REC_GATE_VOCAB}, full widths): card = CPU: "
+        f"serve [{REC_GATE_SERVE}] within {serve_err:.3g}, retrieval over "
+        f"{REC_GATE_CANDIDATES} candidates: top-100 values within {ret_err:.3g}, "
+        f"{int(differ.sum())} ids differ (ties, within {tie_err:.3g}); train step "
+        f"[{REC_GATE_TRAIN}] metrics within {m_err:.3g}, parameters within {p_err:.3g} "
+        f"(tolerances {REC_SERVE_ATOL}, {REC_TRAIN_ATOL}); a step run twice on the card equal "
+        f"bit for bit ({time.perf_counter() - t0:.1f} s)")
+    del runs, models, init
+    torch.cuda.empty_cache()
+    return dict(serve_err=serve_err, retrieval_err=ret_err, ids_differ=int(differ.sum()),
+                metrics_err=m_err, params_err=p_err)
+
+
+def recsys_phase(smi, dev="cuda") -> dict:
+    """22. The recsys family on the card: (a) each arch at its full CONFIG
+    (``rec_full``); (b), (c) card = CPU and reruns (``rec_gate``); (d) the
+    launcher's restart at deepfm and dlrm-rm2."""
+    import torch
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    found = {}
+    for arch in REC_ARCHS:
+        found[arch] = rec_full(arch, dev, smi)
+        found[arch]["gate"] = rec_gate(arch, dev)
+    for arch in REC_LAUNCH:
+        sa, n_leaves = launcher_restart(arch, f"recsys {arch} train")
+        log(f"recsys {arch} launcher: failed at step {LM_LAUNCH_FAIL}, resumed at 50, its "
+            f"step-{sa} checkpoint ({n_leaves} leaves) equal byte for byte to an "
+            f"uninterrupted run's")
+    log(f"recsys phase {time.perf_counter() - t_phase:.1f} s; {smi}")
+    return found
+
+
+# ---------------------------------------------------------------- graph
+
+GRAPH_SHAPES = ("full_graph_sm", "molecule")   # the two the reference's data path can build
+GRAPH_STEPS = 4                                # a warm-up and three timed steps
+GRAPH_ATOL = 1e-4
+
+
+def graph_flops(cfg, n_nodes: int, n_edges: int, n_trip: int, d_feat: int) -> dict:
+    """A forward's operations (2 a multiply-add) at these counts: the node
+    projection, the edge embedding, and per block the triplet basis map,
+    the kj projection, the bilinear maps, the two edge updates, the output
+    map and node projection; the readout. Returns the forward's total and
+    the blocks' part (recomputed once more in backward under remat full)."""
+    h, r, s, nbl = cfg.d_hidden, cfg.n_radial, cfg.n_spherical, cfg.n_bilinear
+    embed = (2 * n_nodes * (d_feat or 16) * h + 2 * n_edges * r * h + 2 * n_edges * 3 * h * h
+             + 2 * n_nodes * h * h + 2 * n_nodes * h)
+    block = (2 * n_trip * s * r * nbl + 2 * n_trip * h * h + nbl * (2 * n_trip * h * h
+             + 2 * n_trip * h) + 2 * 2 * n_edges * h * h + 2 * n_edges * r * h
+             + 2 * n_nodes * h * h)
+    return dict(forward=float(embed + cfg.n_blocks * block), blocks=float(cfg.n_blocks * block))
+
+
+def graph_step_once(cfg, shape, model, batch, dev):
+    """One train step of ``model`` (updated in place) under REC_GATE_TX's
+    AdamW: (loss, grad_norm) on the CPU."""
+    import torch
+
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import build_bundle
+    from repro_torch.models.api import TrainState, adamw
+
+    fn = build_bundle(cfg, make_test_mesh(1, 1, device=dev)).step(shape).fn
+    _, m = fn(TrainState(model, adamw(model, **REC_GATE_TX)), batch)
+    return torch.stack([m["loss"], m["grad_norm"]]).cpu()
+
+
+def graph_phase(smi, dev="cuda") -> dict:
+    """23. DimeNet's CONFIG on the card: (a) full_graph_sm and molecule from
+    build_graph_batch, a warm-up and three timed steps each; (b) one step
+    on molecule card = CPU (the metrics relative to max(1, |value|)); (c)
+    remat none = full and a step run twice, bit for bit. Each shape's step
+    is profiled once more: device busy and the top operators."""
+    import copy
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.smoke import make_smoke_inputs
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import build_bundle
+    from repro_torch.models import dimenet
+    from repro_torch.models.api import TrainState
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg, shapes = get_config("dimenet")
+    mesh = make_test_mesh(1, 1, device=dev)
+    bundle = build_bundle(cfg, mesh)
+    found = {}
+    for shape in (s for s in shapes if s.name in GRAPH_SHAPES):
+        t0 = time.perf_counter()
+        batch = make_smoke_inputs(cfg, shape, mesh, seed=0)["batch"]
+        t_data = time.perf_counter() - t0
+        n_nodes = shape["n_nodes"] * shape.dims.get("batch", 1)
+        counts = {k: (int(batch[m].sum()), int(batch[m].numel()))
+                  for k, m in (("edges", "edge_mask"), ("triplets", "trip_mask"))}
+        model = bundle.init(torch.Generator(device=dev).manual_seed(0), shape)
+        state = TrainState(model, bundle.optimizer(model))
+        fn = bundle.step(shape).fn
+        torch.cuda.reset_peak_memory_stats()
+        times, losses = [], []
+        for _ in range(GRAPH_STEPS):
+            (_, m), ms = host_ms(lambda: fn(state, batch))
+            times.append(ms)
+            losses.append(float(m["loss"]))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"graph {shape.name}: losses {losses}")
+        wall, busy, top = lm_profile(lambda: fn(state, batch))
+        ms = float(np.median(times[1:]))
+        fl = graph_flops(cfg, n_nodes, counts["edges"][0], counts["triplets"][0], shape["d_feat"])
+        ops = 3 * fl["forward"] + fl["blocks"]
+        bound_ms = 1e3 * ops / PEAK_OPS["float32"]
+        trip_s = counts["triplets"][0] / ms * 1e3
+        found[shape.name] = dict(ms=ms, warmup_ms=times[0], triplets_s=trip_s, bound_ms=bound_ms,
+                                 gflop=ops / 1e9, peak_gib=peak, counts=counts, losses=losses)
+        log(f"graph  {shape.name}: {n_nodes} nodes (d_feat {shape['d_feat']}), edges "
+            f"{counts['edges'][0]} real of {counts['edges'][1]}, triplets "
+            f"{counts['triplets'][0]} real of {counts['triplets'][1]} (batch made in "
+            f"{t_data:.1f} s); median {ms:.2f} ms a step of {GRAPH_STEPS - 1} after a warm-up of "
+            f"{times[0]:.1f} ({trip_s:,.0f} triplets/s); bound {bound_ms:.4f} ms by operations "
+            f"({ops / 1e9:.2f} GFLOP at 67 TFLOP/s: the forward, a backward of two, the blocks "
+            f"recomputed); peak {peak:.3f} GiB; loss {[round(v, 4) for v in losses]}; {smi}")
+        log(f"graph  {shape.name} profile of one step: wall {wall:.1f} ms, device busy "
+            f"{busy:.1f} ms; top operators (device ms, calls): "
+            + ", ".join(f"{k} {ms:.1f} ({n})" for k, ms, n in top))
+        found[shape.name].update(profile_wall_ms=wall, busy_ms=busy, top=top)
+        del state, model
+    shape = next(s for s in shapes if s.name == "molecule")
+    batch = make_smoke_inputs(cfg, shape, make_test_mesh(1, 1, device="cpu"), seed=1)["batch"]
+    card_batch = {k: v.to(dev) for k, v in batch.items()}
+    init = dimenet.init_params(cfg, 0, torch.Generator(device=dev).manual_seed(1), dev)
+    runs = {}
+    for name, remat in (("full", "full"), ("again", "full"), ("none", "none")):
+        model = copy.deepcopy(init)
+        runs[name] = (graph_step_once(dataclasses.replace(cfg, remat=remat), shape, model,
+                                      card_batch, dev), model)
+    for name in ("again", "none"):
+        if not torch.equal(runs[name][0], runs["full"][0]) or not all(
+                torch.equal(x, y) for x, y in zip(runs[name][1].parameters(),
+                                                   runs["full"][1].parameters())):
+            raise AssertionError(f"graph molecule: {name} differs from remat full's step")
+    cpu = copy.deepcopy(init).to("cpu")
+    m_cpu = graph_step_once(cfg, shape, cpu, batch, "cpu")
+    m_err = metric_err(runs["full"][0], m_cpu)
+    p_err = max(float((x.detach().cpu() - y.detach()).abs().max())
+                for x, y in zip(runs["full"][1].parameters(), cpu.parameters()))
+    if not (m_err <= GRAPH_ATOL and p_err <= GRAPH_ATOL):
+        raise AssertionError(f"graph molecule: card != CPU: metrics {runs['full'][0].tolist()} "
+                             f"vs {m_cpu.tolist()}, parameters by {p_err}")
+    found["gate"] = dict(metrics_err=m_err, params_err=p_err)
+    log(f"graph  molecule gate: one step card = CPU (metrics within {m_err:.3g} of max(1, "
+        f"|value|), parameters within {p_err:.3g}; tolerance {GRAPH_ATOL}); on the card remat "
+        f"none = full and a step run twice, bit for bit")
+    del runs, init, cpu
+    torch.cuda.empty_cache()
+    log(f"graph  phase {time.perf_counter() - t_phase:.1f} s; {smi}")
     return found
 
 
@@ -3224,6 +3704,8 @@ def main(n_base: int = N_BASE, n_queries: int = N_QUERIES) -> int:
     examples_phase()
     lm_phase(smi)
     lm_train_phase(smi)
+    recsys_phase(smi)
+    graph_phase(smi)
     for kern in kernels:
         for path, found in (("mesh", meshed), ("cluster", clustered)):
             if kern["name"] in found:

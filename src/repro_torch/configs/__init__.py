@@ -1,10 +1,10 @@
 """Architecture registry: ``get_config(arch_id)`` -> (config, shapes)
 (counterpart of ``repro/configs/__init__.py``).
 
-The five LM architectures and the paper's own system (lira-ann, lira-ann-q),
-in the reference's order. Each module defines CONFIG, SHAPES, SMOKE (a
-reduced same-family config for the CPU tests) and SMOKE_SHAPES. The GNN and
-recsys architectures are not ported yet.
+The reference's twelve ids in its order: the five LM architectures,
+DimeNet, the four recsys architectures and the paper's own system (lira-ann,
+lira-ann-q). Each module defines CONFIG, SHAPES, SMOKE (a reduced
+same-family config for the CPU tests) and SMOKE_SHAPES.
 """
 from __future__ import annotations
 
@@ -16,6 +16,11 @@ ARCH_IDS = (
     "deepseek_coder_33b",
     "mistral_large_123b",
     "stablelm_3b",
+    "dimenet",
+    "deepfm",
+    "autoint",
+    "mind",
+    "dlrm_rm2",
     "lira_ann",
     "lira_ann_q",
 )
@@ -37,7 +42,7 @@ def get_smoke(arch: str):
 
 
 def all_cells():
-    """Every (arch, config, shape) cell of the ported architectures."""
+    """Every (arch, config, shape) cell."""
     for arch in ARCH_IDS:
         cfg, shapes = get_config(arch)
         for shape in shapes:

@@ -1,7 +1,7 @@
 """Config schema (counterpart of ``repro/configs/base.py``): the LM
-architectures' ``MoEConfig`` / ``LMConfig`` and their shapes, and the LIRA
-system's ``LiraSystemConfig`` and ``FrontendConfig``. The GNN and recsys
-configs are not ported yet."""
+architectures' ``MoEConfig`` / ``LMConfig``, the GNN's ``GNNConfig``, the
+recsys family's ``RecsysConfig`` and their shapes, and the LIRA system's
+``LiraSystemConfig`` and ``FrontendConfig``."""
 from __future__ import annotations
 
 import dataclasses
@@ -68,6 +68,61 @@ LM_SHAPES: Sequence[ShapeSpec] = (
     ShapeSpec("prefill_32k", "prefill", {"seq_len": 32768, "global_batch": 32}),
     ShapeSpec("decode_32k", "decode", {"seq_len": 32768, "global_batch": 128}),
     ShapeSpec("long_500k", "decode", {"seq_len": 524288, "global_batch": 1}),
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class GNNConfig:
+    arch: str
+    n_blocks: int
+    d_hidden: int
+    n_bilinear: int
+    n_spherical: int
+    n_radial: int
+    d_feat: int = 0                 # 0 = atom-type embedding input
+    dtype: str = "float32"
+    remat: str = "full"
+
+
+GNN_SHAPES: Sequence[ShapeSpec] = (
+    ShapeSpec("full_graph_sm", "graph_train",
+              {"n_nodes": 2708, "n_edges": 10556, "d_feat": 1433, "triplet_mult": 4}),
+    ShapeSpec("minibatch_lg", "graph_train",
+              {"n_nodes": 169984, "n_edges": 168960, "d_feat": 602, "triplet_mult": 4,
+               "total_nodes": 232965, "total_edges": 114615892, "batch_nodes": 1024, "fanout": (15, 10)}),
+    ShapeSpec("ogb_products", "graph_train",
+              {"n_nodes": 2449029, "n_edges": 61859140, "d_feat": 100, "triplet_mult": 2}),
+    ShapeSpec("molecule", "graph_train",
+              {"n_nodes": 30, "n_edges": 64, "batch": 128, "d_feat": 0, "triplet_mult": 8}),
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class RecsysConfig:
+    arch: str
+    n_dense: int
+    n_sparse: int
+    embed_dim: int
+    vocab_per_field: int
+    interaction: str                      # fm | self-attn | multi-interest | dot
+    bot_mlp: Sequence[int] = ()
+    top_mlp: Sequence[int] = ()
+    mlp: Sequence[int] = ()
+    n_attn_layers: int = 0
+    n_heads: int = 0
+    d_attn: int = 0
+    n_interests: int = 0
+    capsule_iters: int = 0
+    hist_len: int = 50                    # MIND behaviour-sequence length
+    nnz: int = 1                          # multi-hot bag size (EmbeddingBag)
+    dtype: str = "float32"
+
+
+RECSYS_SHAPES: Sequence[ShapeSpec] = (
+    ShapeSpec("train_batch", "rec_train", {"batch": 65536}),
+    ShapeSpec("serve_p99", "rec_serve", {"batch": 512}),
+    ShapeSpec("serve_bulk", "rec_serve", {"batch": 262144}),
+    ShapeSpec("retrieval_cand", "retrieval", {"batch": 1, "n_candidates": 1_000_000}),
 )
 
 

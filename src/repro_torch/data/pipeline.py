@@ -1,6 +1,6 @@
 """Deterministic, resumable host data pipeline; counterpart of
-``repro/data/pipeline.py``'s ``PipelineSpec``, ``TokenPipeline`` and
-``ProbingPipeline``.
+``repro/data/pipeline.py``'s ``PipelineSpec``, ``TokenPipeline``,
+``ProbingPipeline`` and ``RecsysPipeline``.
 
 Every batch is a pure numpy function of (seed, step, host_id): there is no
 iterator state to checkpoint. After a restart, training resumes at step N
@@ -64,3 +64,25 @@ class ProbingPipeline:
         rng = np.random.default_rng((self.spec.seed, step, self.spec.host_id))
         sel = rng.integers(0, len(self.x), self.spec.host_batch)
         return {"q": self.x[sel], "cent_dist": self.cd[sel], "labels": self.labels[sel]}
+
+
+class RecsysPipeline:
+    """Click-log batches of ``make_recsys_batch``: int32 ``sparse_ids``
+    [host_batch, n_sparse, nnz], f32 ``label`` and, with dense features,
+    ``dense``. The reference's fields only: no MIND history."""
+
+    def __init__(self, spec: PipelineSpec, config):
+        self.spec = spec
+        self.cfg = config
+
+    def batch_at(self, step: int) -> dict:
+        from repro_torch.data.synthetic import make_recsys_batch
+
+        rng = np.random.default_rng((self.spec.seed, step, self.spec.host_id))
+        b = make_recsys_batch(rng, self.spec.host_batch, self.cfg.n_dense,
+                              self.cfg.n_sparse, self.cfg.vocab_per_field,
+                              multi_hot=self.cfg.nnz)
+        out = {"sparse_ids": b["sparse_ids"], "label": b["label"]}
+        if self.cfg.n_dense:
+            out["dense"] = b["dense"]
+        return out

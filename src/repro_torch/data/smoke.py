@@ -1,13 +1,14 @@
 """Random batches for the smoke tests, one generator per step kind
 (counterpart of ``repro/data/smoke.py``): the same numpy draws from the same
 seed (``default_rng(seed)``), so the JAX package and the port get equal
-inputs. The graph and recsys kinds are not ported yet."""
+inputs."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import LiraSystemConfig, LMConfig
+from repro_torch.configs.base import GNNConfig, LiraSystemConfig, LMConfig, RecsysConfig
+from repro_torch.data.graph import build_graph_batch
 
 
 def make_smoke_inputs(config, shape, mesh, seed: int = 0) -> dict:
@@ -34,6 +35,29 @@ def make_smoke_inputs(config, shape, mesh, seed: int = 0) -> dict:
             return {"cache": cache,
                     "tokens": put(host.integers(1, config.vocab, (gb, 1)).astype(np.int32)),
                     "pos": torch.tensor(s // 2, dtype=torch.int32, device=dev)}
+
+    if isinstance(config, GNNConfig):
+        batch = build_graph_batch(
+            seed,
+            n_nodes=shape["n_nodes"], n_edges=shape["n_edges"],
+            d_feat=shape["d_feat"], triplet_mult=shape["triplet_mult"],
+            n_graphs=shape.dims.get("batch", 1), n_shards=len(mesh.devices),
+        )
+        return {"batch": {k: put(v) for k, v in batch.items()}}
+
+    if isinstance(config, RecsysConfig):
+        b = shape["batch"] if shape.kind != "retrieval" else shape["n_candidates"]
+        batch = {
+            "sparse_ids": put(host.integers(0, config.vocab_per_field, (b, config.n_sparse, config.nnz)).astype(np.int32)),
+            "label": put((host.uniform(size=b) < 0.3).astype(np.float32)),
+        }
+        if config.n_dense:
+            batch["dense"] = put(host.lognormal(0, 1, (b, config.n_dense)).astype(np.float32))
+        if config.interaction == "multi-interest":
+            batch["hist_ids"] = put(host.integers(0, config.vocab_per_field, (b, config.hist_len)).astype(np.int32))
+            batch["hist_mask"] = put((host.uniform(size=(b, config.hist_len)) < 0.8).astype(np.float32))
+            batch["target_id"] = put(host.integers(0, config.vocab_per_field, b).astype(np.int32))
+        return {"batch": batch}
 
     if isinstance(config, LiraSystemConfig):
         if shape.kind == "lira_serve":

@@ -23,8 +23,8 @@
     backward as ``cfg.remat`` says, ``cfg.grad_accum`` microbatches summed
     into an f32 accumulator, gradients clipped to global norm 1, then the
     optimizer (``adamw``: the reference's decay rule on its stacked tree).
-    ``TrainState`` lists the model and optimizer as the reference's
-    checkpoint holds them, so a checkpoint either package writes resumes in
+    ``TrainState`` (``models.api``) lists the model and optimizer as the
+    reference's checkpoint holds them, so a checkpoint either package writes resumes in
     the other.
 
 The meshed LM (sequence-sharded decode, expert parallelism, the
@@ -34,7 +34,6 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -43,7 +42,9 @@ from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_conte
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.models import layers as L
-from repro_torch.models.api import ModelBundle, ShapeSpec, StepDef, sds
+# TrainState and adamw stay importable from here: the LM's Trainer state and optimizer
+from repro_torch.models.api import (ModelBundle, ShapeSpec, StepDef, TrainState, adamw,
+                                   check_one_device, nest, sds)
 from repro_torch.train import optimizer as opt
 from repro_torch.utils.device import resolve_device
 
@@ -93,24 +94,13 @@ def _param_defs(cfg: LMConfig) -> dict:
     return defs
 
 
-def _nest(flat: dict) -> dict:
-    out: dict = {}
-    for path, val in flat.items():
-        node = out
-        parts = path.split(".")
-        for p in parts[:-1]:
-            node = node.setdefault(p, {})
-        node[parts[-1]] = val
-    return out
-
-
 def _dtype(cfg: LMConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
 def param_specs(cfg: LMConfig) -> dict:
     """The parameter tree as meta tensors (no storage)."""
-    return _nest({k: sds(s, _dtype(cfg)) for k, s in _param_defs(cfg).items()})
+    return nest({k: sds(s, _dtype(cfg)) for k, s in _param_defs(cfg).items()})
 
 
 class LM(nn.Module):
@@ -200,16 +190,13 @@ def to_jax_params(model: LM) -> dict:
     for path, _, tensors in model.named_leaves():
         arrs = [t.detach().float().cpu().numpy() for t in tensors]
         flat[path] = np.stack(arrs) if path.startswith("layers.") else arrs[0]
-    return _nest(flat)
+    return nest(flat)
 
 
 # --------------------------------------------------------------- layers
 
 def _check_mesh(mesh) -> None:
-    if any(s != 1 for s in mesh.sizes):
-        raise NotImplementedError(
-            f"the LM runs on one device; mesh {mesh.shape} needs the meshed LM "
-            f"(sequence-sharded decode, expert parallelism), which is not ported yet")
+    check_one_device(mesh, "the meshed LM (sequence-sharded decode, expert parallelism)")
 
 
 def _moe_block(h: torch.Tensor, lp, cfg: LMConfig, with_aux: bool):
@@ -427,72 +414,6 @@ def make_decode_step(cfg: LMConfig, mesh, global_batch: int, seq_len: int):
 
 
 # --------------------------------------------------------------- train step
-
-def _jax_order(model: LM) -> list:
-    """(path, shape of the reference's leaf, tensors) of every leaf, in
-    ``jax.tree.flatten`` order of the reference's tree (dict keys sorted)."""
-    return sorted(model.named_leaves(), key=lambda leaf: leaf[0].split("."))
-
-
-def adamw(model: LM, lr, **kw) -> opt.AdamW:
-    """The reference's ``adamw(lr, **kw)`` over ``model``: AdamW over its
-    parameters, each decayed when the reference's leaf that holds it has two
-    dimensions or more. The reference stacks the layers, so a layer's
-    ``ln1`` and ``ln2`` ([D] here, leaves of [L, D] there) are decayed and
-    ``ln_f`` ([D] in both) is not."""
-    params, mask = [], []
-    for _, shape, tensors in _jax_order(model):
-        params += tensors
-        mask += [len(shape) >= 2] * len(tensors)
-    return opt.AdamW(params, lr, mask=mask, **kw)
-
-
-class TrainState(NamedTuple):
-    """An LM and its AdamW as the ``Trainer`` checkpoints them.
-    ``leaves()`` lists the reference's ``(params, OptState(step, mu, nu))``
-    in ``jax.tree.flatten`` order (``leaf_names``), as copies, every layer
-    leaf stacked [L, ...] as the reference holds it; ``load_leaves`` copies
-    such a list back into the layers and the optimizer. Unpacks as
-    ``model, tx = state``."""
-
-    model: LM
-    tx: opt.AdamW
-
-    @property
-    def device(self) -> torch.device:
-        return self.model.device
-
-    def _slots(self) -> list:
-        """(name, tensors, stacked) of every leaf, in flatten order."""
-        step, mu, nu = self.tx.state()
-        at = {id(p): i for i, p in enumerate(self.tx.params)}
-        order = _jax_order(self.model)
-        slots = [(f"params/{path}", tensors, path.startswith("layers."))
-                 for path, _, tensors in order]
-        slots.append(("opt/step", [step], False))
-        for name, moment in (("mu", mu), ("nu", nu)):
-            slots += [(f"opt/{name}/{path}", [moment[at[id(t)]] for t in tensors],
-                       path.startswith("layers.")) for path, _, tensors in order]
-        return slots
-
-    def leaf_names(self) -> list:
-        return [name for name, _, _ in self._slots()]
-
-    def leaves(self) -> list:
-        return [torch.stack([t.detach() for t in tensors]) if stacked
-                else tensors[0].detach().clone() for _, tensors, stacked in self._slots()]
-
-    @torch.no_grad()
-    def load_leaves(self, leaves) -> None:
-        slots = self._slots()
-        if len(leaves) != len(slots):
-            raise ValueError(f"{len(leaves)} leaves for a state of {len(slots)}")
-        for (name, tensors, stacked), src in zip(slots, leaves):
-            for t, s in zip(tensors, src if stacked else [src]):
-                if tuple(t.shape) != tuple(s.shape):
-                    raise ValueError(f"{name}: {tuple(s.shape)} does not fit {tuple(t.shape)}")
-                t.copy_(s)
-
 
 def make_train_step(cfg: LMConfig, mesh):
     """One optimizer step: ``train_step(state, batch) -> (state, metrics)``

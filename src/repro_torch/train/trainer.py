@@ -21,7 +21,7 @@ Where the checkpoint's layout is not the live tensors' (the LM's layers are
 stacked [L, ...] in the reference's tree and held a layer each here),
 ``init_state`` is a state object instead of a list: ``leaves()`` lists what
 a checkpoint holds, ``load_leaves(leaves)`` copies a restored list back, and
-``device`` names where batches go (``models.transformer.TrainState``).
+``device`` names where batches go (``models.api.TrainState``).
 """
 from __future__ import annotations
 

@@ -34,7 +34,10 @@ def test_no_module_imports_jax_or_the_jax_package():
                  "configs/stablelm_3b.py", "configs/deepseek_coder_33b.py",
                  "configs/mistral_large_123b.py", "configs/moonshot_v1_16b_a3b.py",
                  "configs/qwen3_moe_235b_a22b.py", "data/smoke.py", "utils/tree.py",
-                 "train/optimizer.py", "launch/train.py", "examples/lm_pretrain.py"):
+                 "train/optimizer.py", "launch/train.py", "examples/lm_pretrain.py",
+                 "models/recsys.py", "models/dimenet.py", "data/graph.py",
+                 "configs/deepfm.py", "configs/autoint.py", "configs/mind.py",
+                 "configs/dlrm_rm2.py", "configs/dimenet.py"):
         assert PKG / part in files
     bad = [(str(f.relative_to(PKG)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]
@@ -57,7 +60,10 @@ def test_importing_the_port_leaves_jax_unloaded():
             "repro_torch.configs.mistral_large_123b, repro_torch.configs.moonshot_v1_16b_a3b, "
             "repro_torch.configs.qwen3_moe_235b_a22b, repro_torch.utils.tree, "
             "repro_torch.train.optimizer, repro_torch.launch.train, "
-            "repro_torch.examples.lm_pretrain; "
+            "repro_torch.examples.lm_pretrain, repro_torch.models.recsys, "
+            "repro_torch.models.dimenet, repro_torch.data.graph, repro_torch.configs.deepfm, "
+            "repro_torch.configs.autoint, repro_torch.configs.mind, "
+            "repro_torch.configs.dlrm_rm2, repro_torch.configs.dimenet; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(PKG.parent))
@@ -100,7 +106,11 @@ def _entry_points():
     from repro_torch.core import probing
     from repro_torch.core.partitions import build_store
     from repro_torch.core.train_probing import train_probing_model
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import build_bundle, dimenet, recsys
 
+    deepfm, dime = get_smoke("deepfm")[0], get_smoke("dimenet")[0]
     x = np.random.default_rng(1).normal(size=(32, 8)).astype(np.float32)
     ids, assign = np.arange(32, dtype=np.int32), np.arange(32, dtype=np.int32) % 4
     tree = {"phi_q": [{"w": np.zeros((8, 16), np.float32), "b": np.zeros(16, np.float32)}],
@@ -116,12 +126,19 @@ def _entry_points():
         "build_ivf": lambda x: baselines.build_ivf(x, 4, generator=torch.Generator()),
         "build_bliss": lambda x: baselines.build_bliss(x, 4, n_groups=1, reparts=1, epochs=1,
                                                        generator=torch.Generator()),
+        "recsys_bundle": lambda x: build_bundle(deepfm, make_test_mesh()),
+        "dimenet_bundle": lambda x: build_bundle(dime, make_test_mesh()),
+        "recsys_from_jax_params": lambda x: recsys.from_jax_params(
+            recsys.to_jax_params(recsys.init_params(deepfm, torch.Generator())), deepfm),
+        "dimenet_from_jax_params": lambda x: dimenet.from_jax_params(
+            dimenet.to_jax_params(dimenet.init_params(dime, 0, torch.Generator())), dime, 0),
     }
 
 
 @pytest.mark.parametrize("entry", ["exact_knn", "build_store", "train_probing_model",
                                    "params_from_jax", "ProbingModel", "build_ivf",
-                                   "build_bliss"])
+                                   "build_bliss", "recsys_bundle", "dimenet_bundle",
+                                   "recsys_from_jax_params", "dimenet_from_jax_params"])
 def test_entry_point_on_arrays_without_device_raises_without_cuda(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     x, entry_points = _entry_points()
@@ -140,3 +157,9 @@ def test_entry_points_follow_the_tensors_they_are_given(monkeypatch):
     from repro_torch.core import retrieval
     assert retrieval.partition_topk(store, x[:3], 2).dists.shape == (3, 4, 2)
     assert entry_points["build_ivf"](torch.from_numpy(x)).vectors.device.type == "cpu"
+    # a generator on the CPU is the caller's choice of device for a model's init
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import dimenet, recsys
+
+    assert recsys.init_params(get_smoke("mind")[0], torch.Generator()).device.type == "cpu"
+    assert dimenet.init_params(get_smoke("dimenet")[0], 4, torch.Generator()).device.type == "cpu"

@@ -1,14 +1,15 @@
-"""The port's LM training launcher (``python -m repro_torch.launch.train``,
-counterpart of ``repro.launch.train``) and pre-training example
+"""The port's training launcher (``python -m repro_torch.launch.train``,
+counterpart of ``repro.launch.train``) and LM pre-training example
 (``repro_torch.examples.lm_pretrain``, counterpart of
-``examples/lm_pretrain.py``) on the CPU: the SMOKE configs train, a run that
-crashes after an update and restarts from its checkpoint ends bit-equal to
-an uninterrupted run (the final checkpoints' files compared), the
-architectures not ported yet raise, and the example's loss falls at reduced
-sizes, dense and MoE. On the card they run as ``python -m``
-(``chip_smoke.py`` phase 21)."""
+``examples/lm_pretrain.py``) on the CPU: the LM and recsys SMOKE configs
+train, a run that crashes after an update and restarts from its checkpoint
+ends bit-equal to an uninterrupted run (the final checkpoints' files
+compared), dimenet and mind stop as they do in the reference's launcher,
+and the example's loss falls at reduced sizes, dense and MoE. On the card
+they run as ``python -m`` (``chip_smoke.py`` phases 21 and 22)."""
 import math
 import re
+import sys
 
 import pytest
 import torch
@@ -69,10 +70,53 @@ def test_launcher_restart_ends_where_an_uninterrupted_run_ends(tmp_path, capsys)
         assert x.dtype == y.dtype and x.tobytes() == y.tobytes()
 
 
-@pytest.mark.parametrize("arch", ["deepfm", "dlrm-rm2", "dimenet"])
-def test_launcher_names_what_is_not_ported(tmp_path, arch):
-    with pytest.raises(NotImplementedError, match="Queue 1: Recsys, then DimeNet"):
-        train.main(["--arch", arch, "--ckpt-dir", str(tmp_path), "--device", "cpu"])
+@pytest.mark.parametrize("arch", ["deepfm", "dlrm-rm2"])
+def test_recsys_launcher_restart_ends_where_an_uninterrupted_run_ends(tmp_path, capsys, arch):
+    """A recsys SMOKE config trains through the launcher (RecsysPipeline
+    batches); --fail-at 55 and a restart from step 50 end in the
+    uninterrupted run's step-60 checkpoint, file for file."""
+    args = ["--arch", arch, "--steps", "60", "--device", "cpu"]
+    with pytest.raises(RuntimeError, match="simulated failure at step 55"):
+        train.main(args + ["--ckpt-dir", str(tmp_path / "a"), "--fail-at", "55"])
+    resumed = train.main(args + ["--ckpt-dir", str(tmp_path / "a")])
+    assert f"{arch}: starting at step 50" in capsys.readouterr().out
+    gold = train.main(args + ["--ckpt-dir", str(tmp_path / "b")])
+    assert [h["step"] for h in gold] == [10, 20, 30, 40, 50, 60]
+    assert all(math.isfinite(h[k]) for h in gold for k in ("loss", "grad_norm"))
+    assert [(h["step"], h["loss"], h["grad_norm"]) for h in resumed] == \
+        [(h["step"], h["loss"], h["grad_norm"]) for h in gold]
+    leaves = []
+    for run in ("a", "b"):
+        step_dir, meta = read_manifest(tmp_path / run)
+        assert meta["step"] == 60
+        leaves.append(load_leaves(step_dir, meta))
+    assert len(leaves[0]) == len(leaves[1]) > 0
+    for x, y in zip(*leaves):
+        assert x.dtype == y.dtype and x.tobytes() == y.tobytes()
+
+
+def _jax_launcher(monkeypatch, arch, ckpt_dir):
+    from repro.launch import train as jax_train
+
+    monkeypatch.setattr(sys, "argv", ["train", "--arch", arch, "--steps", "2",
+                                      "--ckpt-dir", str(ckpt_dir)])
+    return jax_train.main
+
+
+def test_launcher_exits_for_dimenet_as_the_reference(tmp_path, monkeypatch):
+    with pytest.raises(SystemExit, match="benchmarks for arch dimenet"):
+        train.main(["--arch", "dimenet", "--ckpt-dir", str(tmp_path / "t"), "--device", "cpu"])
+    with pytest.raises(SystemExit, match="benchmarks for arch dimenet"):
+        _jax_launcher(monkeypatch, "dimenet", tmp_path / "j")()
+
+
+def test_launcher_fails_on_mind_as_the_reference(tmp_path, monkeypatch):
+    """RecsysPipeline yields no MIND history, in either package: the first
+    step stops on the missing hist_ids."""
+    with pytest.raises(KeyError, match="hist_ids"):
+        train.main(["--arch", "mind", "--ckpt-dir", str(tmp_path / "t"), "--device", "cpu"])
+    with pytest.raises(KeyError, match="hist_ids"):
+        _jax_launcher(monkeypatch, "mind", tmp_path / "j")()
 
 
 @pytest.mark.parametrize("moe", [False, True], ids=["dense", "moe"])

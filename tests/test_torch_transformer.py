@@ -257,12 +257,10 @@ def test_specs_and_init(arch):
 
 
 def test_registry_matches_jax():
-    """The ported ids in the reference's order, each config, shape list and
+    """The reference's twelve ids in its order, each config, shape list and
     smoke config equal to the reference's."""
-    assert ARCH_IDS == tuple(a for a in JAX_ARCH_IDS if a in ARCH_IDS)
-    assert set(ARCH_IDS) == {canon(a) for a in (
-        "qwen3-moe-235b-a22b", "moonshot-v1-16b-a3b", "deepseek-coder-33b",
-        "mistral-large-123b", "stablelm-3b", "lira-ann", "lira-ann-q")}
+    assert ARCH_IDS == JAX_ARCH_IDS
+    assert len(ARCH_IDS) == 12 and canon("dlrm-rm2") in ARCH_IDS
 
     def fields(cfg):
         d = dataclasses.asdict(cfg)
@@ -277,7 +275,7 @@ def test_registry_matches_jax():
             assert {k: jf[k] for k in tf} == tf, arch
             assert [(s.name, s.kind, dict(s.dims)) for s in tshapes] == \
                    [(s.name, s.kind, dict(s.dims)) for s in jshapes], arch
-    assert len(list(all_cells())) == 5 * 4 + 2 * 2
+    assert len(list(all_cells())) == 5 * 4 + 4 + 4 * 4 + 2 * 2
 
 
 def test_lm_bundle_scope():
