@@ -255,7 +255,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                none = full and a step run twice, bit for bit. minibatch_lg and ogb_products are not
                run: the reference's data path forms an [N, N, 3] array
                (347 GB at 169,984 nodes).
-Phases 20-23 launch none of the kernels: the LM's attention is the
+ 24. meshes  — after 23: the meshed models, every rank on the one card:
+               (a) stablelm-3b whole, decode over 1 x 4 and 2 x 2 from one
+               [8] x 4,096-position cache, fed the unsharded decode's
+               tokens: its tokens wherever the top-2 margin is clear, the
+               rest counted, ms a step against the unsharded step; (b)
+               moonshot's width at 4 layers over 1 x 4 and 2 x 2, MoE
+               gather and a2a: prefill [4, 2048], 16 decode steps, one
+               train step at [2, 4096], each rank's dropped pairs and ms
+               against the unsharded steps, and the same meshed steps at 2
+               layers in f32 card = CPU; (c) dlrm-rm2 and mind whole (1M
+               ids a field) over 1 x 4: serve_bulk equal to the unsharded
+               scores bit for bit, one train step at 65,536 within 1e-4 of
+               max(1, |value|), each rank's table slice and the peak; (d)
+               DimeNet on full_graph_sm over 2 x 2: one train step, card =
+               CPU within 1e-4 (the gap to the one-rank step logged: the
+               reference's meshed edge gather is another function); (e)
+               compressed_psum_pod over a 2-pod mesh on (b)'s gradients:
+               the error buffers hold x - deq exactly.
+Phases 20-24 launch none of the kernels: the LM's attention is the
 reference's plain block scan, its loss and optimizer plain XLA, the recsys
 family's embedding bag a gather and sum and DimeNet's message passing
 segment sums, and no Pallas kernel lies on their path.
@@ -267,6 +285,7 @@ The line before the last is the kernels JSON; the last line is
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -2246,6 +2265,28 @@ def lm_profile(fn, top: int = 6):
     return wall, busy, [(e.key, e.self_device_time_total / 1e3, e.count) for e in ops[:top]]
 
 
+def recut_cache(cache, src, dst, b: int, s: int, n_len: int) -> dict:
+    """A cache of ``s`` positions held as ``src``'s ranks' slices, as the
+    slices of an ``n_len``-position cache over ``dst`` (zeros past ``s``):
+    each of ``dst``'s slices copies what it shares with each of ``src``'s."""
+    from repro_torch.models import transformer as ttr
+
+    have = ttr.cache_layout(src, b, s)
+    out = {}
+    for name, parts in cache.items():
+        p0 = parts[0]
+        out[name] = []
+        for ((b0, b1), (s0, s1)), dev in zip(ttr.cache_layout(dst, b, n_len), dst.devices):
+            t = p0.new_zeros((p0.shape[0], b1 - b0, s1 - s0, *p0.shape[3:]), device=dev)
+            for ((c0, c1), (q0, q1)), part in zip(have, parts):
+                lb, hb, ls, hs = max(b0, c0), min(b1, c1), max(s0, q0), min(s1, q1)
+                if lb < hb and ls < hs:
+                    t[:, lb - b0:hb - b0, ls - s0:hs - s0] = \
+                        part[:, lb - c0:hb - c0, ls - q0:hs - q0].to(dev)
+            out[name].append(t)
+    return out
+
+
 def lm_run(cfg, model, prefill_shape, steps: int, cache_len: int, dev, gen):
     """Prefill ``prefill_shape`` random tokens from ``gen``, copy the cache
     into one of ``cache_len`` positions, then greedy decode: once untimed
@@ -2259,7 +2300,8 @@ def lm_run(cfg, model, prefill_shape, steps: int, cache_len: int, dev, gen):
     from repro_torch.launch.mesh import make_test_mesh
 
     b, s = prefill_shape
-    bundle = build_bundle(cfg, make_test_mesh(1, 1, device=dev))
+    one = make_test_mesh(1, 1, device=dev)
+    bundle = build_bundle(cfg, one)
     prefill = bundle.step(ShapeSpec("prefill", "prefill", {"seq_len": s, "global_batch": b})).fn
     decode = bundle.step(ShapeSpec("decode", "decode",
                                    {"seq_len": cache_len, "global_batch": b})).fn
@@ -2280,10 +2322,7 @@ def lm_run(cfg, model, prefill_shape, steps: int, cache_len: int, dev, gen):
     try:
         logits, cache = prefill(model, toks)                    # warm-up, counted
         prefill_routing, routing[:] = list(routing), []
-        shape = (cfg.n_layers, b, cache_len, cfg.n_kv_heads, cfg.head_dim)
-        dcache = {n: torch.zeros(shape, dtype=c.dtype, device=dev) for n, c in cache.items()}
-        for n in cache:
-            dcache[n][:, :, :s] = cache[n]
+        dcache = recut_cache(cache, one, one, b, s, cache_len)
         del cache
         first = logits.argmax(-1).to(torch.int32)[:, None]
         tok, warm = first, []
@@ -2418,14 +2457,11 @@ def lm_gate(cfg, prefill_shape, steps: int, dev, what, *, against_prefill: bool)
     card = ttr.init_params(cfg, torch.Generator(device=dev).manual_seed(1), dev)
     cpu = copy.deepcopy(card).to("cpu")
     toks = torch.randint(1, cfg.vocab, (b, s), generator=torch.Generator().manual_seed(2))
-    shape = (cfg.n_layers, b, s + steps, cfg.n_kv_heads, cfg.head_dim)
     sides = {}
     for side, model, d in (("cpu", cpu, "cpu"), ("card", card, dev)):
         mesh = make_test_mesh(1, 1, device=d)
         logits, cache = ttr.make_prefill_step(cfg, mesh)(model, toks.to(d))
-        full = {n: torch.zeros(shape, dtype=c.dtype, device=d) for n, c in cache.items()}
-        for n in cache:
-            full[n][:, :, :s] = cache[n]
+        full = recut_cache(cache, mesh, mesh, b, s, s + steps)
         sides[side] = [logits.cpu(), full, ttr.make_decode_step(cfg, mesh, b, s + steps), model, d]
     err = float((sides["card"][0] - sides["cpu"][0]).abs().max())
     if err > LM_F32_ATOL:
@@ -3409,6 +3445,509 @@ def graph_phase(smi, dev="cuda") -> dict:
     return found
 
 
+# ---------------------------------------------------------------- meshes
+
+MESH_LM = ((1, 4), (2, 2))                    # (a), (b): (data, model)
+MESH_DENSE_STEPS = 16
+MESH_MOE_PREFILL, MESH_MOE_STEPS, MESH_MOE_TRAIN = (4, 2048), 16, (2, 4096)   # (b)
+MESH_MOE_GATE = (2, 64)                       # (b): 2 layers in f32, prefill and train
+MESH_MOE_GATE_VOCAB = 32_768                  # (b)'s gate: the meshed regions never read the vocab
+MESH_MOE_GATE_STEPS = 4
+MESH_BF16_STEPS = 4                           # (a): tests/test_torch_transformer.py's bf16 rule
+MESH_REC = ("dlrm-rm2", "mind")               # (c)
+MESH_REC_MESH = (1, 4)
+MESH_GRAPH_MESH = (2, 2)                      # (d)
+MESH_ATOL = 1e-4
+
+
+def mesh_dense(cfg, dev, smi) -> dict:
+    """(a) One prefill of LM_PREFILL random tokens into an LM_CACHE-position
+    cache, then MESH_DENSE_STEPS greedy decode steps on one rank; then the
+    same steps over each MESH_LM mesh from that cache, fed the one-rank
+    run's tokens. A meshed token must equal the one-rank token wherever the
+    one-rank logits' top-2 margin exceeds twice MESH_BF16_STEPS bf16 steps
+    of their largest |logit|, and every meshed logit must lie within
+    MESH_BF16_STEPS such steps of the one-rank logit."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import transformer as ttr
+
+    t0 = time.perf_counter()
+    model = ttr.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    b, s = LM_PREFILL
+    one = make_test_mesh(1, 1, device=dev)
+    toks = torch.randint(1, cfg.vocab, (b, s), generator=torch.Generator().manual_seed(2)).to(dev)
+    logits, cache = ttr.make_prefill_step(cfg, one)(model, toks)
+    whole = recut_cache(cache, one, one, b, s, LM_CACHE)
+    del cache
+    first = logits.argmax(-1).to(torch.int32)[:, None]
+
+    def run(mesh, cache, feed=None):
+        """Greedy steps from ``first`` (fed ``feed``'s tokens when given),
+        after an untimed step at s, which the first timed step rewrites."""
+        ttr.decode_logits(model, cache, first, s, mesh)
+        out, secs, tok = [], [], first
+        for i in range(MESH_DENSE_STEPS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            lg = ttr.decode_logits(model, cache, tok, s + i, mesh)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t1)
+            out.append(lg)
+            tok = (feed[i] if feed is not None else lg.argmax(-1).to(torch.int32))[:, None]
+        return torch.stack(out), secs
+
+    ref, ref_s = run(one, whole)
+    found = {"one_ms": 1e3 * float(np.median(ref_s))}
+    atol = MESH_BF16_STEPS * float(ref.abs().max()) * 2.0 ** -7
+    top2 = ref.float().topk(2, -1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * atol
+    for dims in MESH_LM:
+        mesh = make_test_mesh(*dims, device=dev)
+        ranked = recut_cache(whole, one, mesh, b, LM_CACHE, LM_CACHE)
+        sizes = sorted({tuple(t.shape[1:3]) for t in ranked["k"]})
+        got, secs = run(mesh, ranked, ref.argmax(-1).to(torch.int32))
+        del ranked
+        tok = got.argmax(-1)
+        wrong = int(((tok != ref.argmax(-1)) & clear).sum())
+        unsure = int((~clear).sum())
+        err = float((got - ref).abs().max())
+        ms = 1e3 * float(np.median(secs))
+        found[f"{dims[0]}x{dims[1]}"] = dict(ms=ms, logits_err=err, unsure=unsure,
+                                             differ=int((tok != ref.argmax(-1)).sum()))
+        log(f"meshes dense {cfg.arch} decode over {dims[0]} x {dims[1]} (cache slices [B, S] "
+            f"{sizes}): {MESH_DENSE_STEPS} steps from position {s}, median {ms:.2f} ms a step "
+            f"against {found['one_ms']:.2f} ms on one rank; logits within {err:.3g} of the "
+            f"one-rank decode's (bf16; tolerance {atol:.3g}); tokens equal wherever the top-2 margin exceeds "
+            f"{2 * atol:.3g}, {unsure} of {tok.numel()} within it left unchecked "
+            f"({found[f'{dims[0]}x{dims[1]}']['differ']} of them differ); {smi}")
+        if wrong:
+            raise AssertionError(f"meshes dense over {dims}: {wrong} tokens with a clear margin "
+                                 f"differ from the one-rank decode")
+        if not err <= atol:
+            raise AssertionError(f"meshes dense over {dims}: logits differ from the one-rank "
+                                 f"decode's by {err}, past {atol:.3g} ({MESH_BF16_STEPS} bf16 "
+                                 f"steps of their largest |logit|)")
+    del whole, model
+    torch.cuda.empty_cache()
+    found["s"] = time.perf_counter() - t0
+    return found
+
+
+@contextlib.contextmanager
+def counting_drops(calls: list):
+    """While open, each MoE block's dropped (token, expert) pairs go into
+    ``calls``: one list a batch row's block call, one count a model rank
+    (each gather dispatch, in rank order; ``moe_a2a_local``'s own list).
+    Each count waits for the card."""
+    from repro_torch.models import layers as lm_layers
+
+    dispatch, a2a = lm_layers.moe_dispatch_local, lm_layers.moe_a2a_local
+
+    def counted_dispatch(x_all, router_w, e0, e_loc, top_k, capacity):
+        if e0 == 0:
+            calls.append([])
+        return dispatch(x_all, router_w, e0, e_loc, top_k, capacity, calls[-1])
+
+    def counted_a2a(*args):
+        calls.append([])
+        return a2a(*args, dropped=calls[-1])
+
+    lm_layers.moe_dispatch_local, lm_layers.moe_a2a_local = counted_dispatch, counted_a2a
+    try:
+        yield calls
+    finally:
+        lm_layers.moe_dispatch_local, lm_layers.moe_a2a_local = dispatch, a2a
+
+
+def mesh_moe_once(cfg, mesh, dev, drops: list) -> dict:
+    """(b) over ``mesh`` (or one rank): a prefill of MESH_MOE_PREFILL
+    random tokens (a warm-up whose dropped pairs are counted, then timed),
+    MESH_MOE_STEPS decode steps from its cache, and two train steps at
+    MESH_MOE_TRAIN (the first's metrics and its forward's dropped pairs,
+    the second's time), each timed on the host clock; ``drops`` gets each
+    MoE block's per-rank dropped pairs."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import transformer as ttr
+    from repro_torch.models.api import ShapeSpec
+
+    model = ttr.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev, mesh=mesh)
+    b, s = MESH_MOE_PREFILL
+    gen = torch.Generator().manual_seed(2)
+    toks = torch.randint(1, cfg.vocab, (b, s), generator=gen).to(dev)
+    prefill = ttr.make_prefill_step(cfg, mesh)
+    with counting_drops([]) as calls:
+        prefill(model, toks)
+    drops.append(("prefill", calls))
+    (logits, cache), prefill_ms = host_ms(lambda: prefill(model, toks))
+    n_len = s + MESH_MOE_STEPS
+    full = recut_cache(cache, mesh, mesh, b, s, n_len)
+    del cache
+    decode = ttr.make_decode_step(cfg, mesh, b, n_len)
+    tok, secs, chain = logits.argmax(-1).to(torch.int32)[:, None], [], []
+    for i in range(MESH_MOE_STEPS):
+        (nxt, full), ms = host_ms(lambda: decode(model, full, tok, s + i))
+        secs.append(ms)
+        chain.append(nxt)
+        tok = nxt[:, None]
+    del full
+    chain = torch.stack(chain)
+    if not bool(torch.isfinite(logits).all()) or not bool(((chain >= 0) & (chain < cfg.vocab)).all()):
+        raise AssertionError(f"meshes moe {mesh.shape}: prefill logits or decode tokens invalid")
+    tb, ts = MESH_MOE_TRAIN
+    batch_toks = torch.randint(1, cfg.vocab, (tb, ts + 1), generator=gen).to(dev)
+    batch = {"tokens": batch_toks[:, :-1], "labels": batch_toks[:, 1:]}
+    state = ttr.TrainState(model, ttr.adamw(model, **LM_GATE_TX))
+    step = ttr.make_train_step(cfg, mesh)
+    with counting_drops([]) as calls:
+        _, metrics = step(state, batch)             # counted; the second step is timed
+    n_fwd = len(calls) // 2 if cfg.remat == "full" else len(calls)
+    drops.append(("train", calls[:n_fwd]))
+    _, train_ms = host_ms(lambda: step(state, batch))
+    metrics = {k: float(v) for k, v in metrics.items()}
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"meshes moe {mesh.shape}: train metrics {metrics}")
+    out = dict(prefill_ms=prefill_ms, decode_ms=float(np.median(secs)), train_ms=train_ms,
+               metrics=metrics, tokens=chain.cpu())
+    del state, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_drops(drops) -> str:
+    """Each model rank's dropped pairs summed over the MoE blocks (and the
+    batch rows), per kind."""
+    parts = []
+    for kind, calls in drops:
+        if not calls:
+            continue
+        per = [sum(c[j] for c in calls) for j in range(len(calls[0]))]
+        parts.append(f"{kind} {per}")
+    return "; ".join(parts)
+
+
+def mesh_moe_gate(cfg, dims, dev) -> dict:
+    """(b)'s card = CPU gate over ``dims``: one f32 model on the card and a
+    copy on the CPU (their ranks on each), a prefill of MESH_MOE_GATE
+    within LM_F32_ATOL, MESH_MOE_GATE_STEPS decode steps token for token
+    (both fed the CPU's tokens), one train step at MESH_MOE_GATE within
+    LM_TRAIN_ATOL of max(1, |value|), and the updated parameters."""
+    import torch
+
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import transformer as ttr
+    from repro_torch.models.api import copy_leaves
+
+    b, s = MESH_MOE_GATE
+    sides = {}
+    for side, d in (("card", dev), ("cpu", "cpu")):
+        mesh = make_test_mesh(*dims, device=d)
+        model = ttr.LM(cfg, mesh=mesh)
+        sides[side] = [model, mesh, d]
+    ttr_init = ttr.init_params(cfg, torch.Generator(device=dev).manual_seed(1), dev,
+                               mesh=sides["card"][1])
+    for model, _, _ in sides.values():
+        copy_leaves(model, ttr_init)
+    del ttr_init
+    toks = torch.randint(1, cfg.vocab, (b, s + 1), generator=torch.Generator().manual_seed(3))
+    out = {}
+    for side, (model, mesh, d) in sides.items():
+        logits, cache = ttr.make_prefill_step(cfg, mesh)(model, toks[:, :-1].to(d))
+        out[side] = [logits.cpu(), cache]
+    err = float((out["card"][0] - out["cpu"][0]).abs().max())
+    if err > LM_F32_ATOL:
+        raise AssertionError(f"meshes moe gate {dims} {cfg.moe_impl}: prefill logits differ by "
+                             f"{err}")
+    tok = out["cpu"][0].argmax(-1).to(torch.int32)[:, None]
+    for i in range(MESH_MOE_GATE_STEPS):
+        got = {}
+        for side, (model, mesh, d) in sides.items():
+            pos = s - MESH_MOE_GATE_STEPS + i      # rewrites the prompt's last positions
+            got[side], _ = ttr.make_decode_step(cfg, mesh, b, s)(model, out[side][1],
+                                                                   tok.to(d), pos)
+        if not torch.equal(got["card"].cpu(), got["cpu"]):
+            raise AssertionError(f"meshes moe gate {dims}: decode step {i} differs")
+        tok = got["cpu"][:, None]
+    metrics = {}
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    for side, (model, mesh, d) in sides.items():
+        state = ttr.TrainState(model, ttr.adamw(model, **LM_GATE_TX))
+        _, m = ttr.make_train_step(cfg, mesh)(state, {k: v.to(d) for k, v in batch.items()})
+        metrics[side] = torch.stack([m[k] for k in LM_METRICS]).cpu()
+        del state
+    m_err = metric_err(metrics["card"], metrics["cpu"])
+    p_err = lm_param_err(sides["cpu"][0], sides["card"][0])
+    if not (m_err <= LM_TRAIN_ATOL and p_err <= LM_TRAIN_ATOL):
+        raise AssertionError(f"meshes moe gate {dims} {cfg.moe_impl}: train metrics "
+                             f"{metrics['card'].tolist()} vs {metrics['cpu'].tolist()}, "
+                             f"parameters by {p_err}")
+    return dict(logits_err=err, metrics_err=m_err, params_err=p_err)
+
+
+def mesh_moe(cfg, dev, smi) -> dict:
+    """(b) moonshot's width at LM_MOE_LAYERS layers: each meshed run
+    (``mesh_moe_once``) against the one-rank run, then the card = CPU gate
+    at 2 layers in f32, its vocabulary cut to MESH_MOE_GATE_VOCAB to keep
+    the CPU side short."""
+    import torch
+
+    from repro_torch.launch.mesh import make_test_mesh
+
+    t0 = time.perf_counter()
+    found = {}
+    drops = []
+    one = mesh_moe_once(cfg, make_test_mesh(1, 1, device=dev), dev, drops)
+    found["one"] = one
+    log(f"meshes moe {cfg.arch} ({cfg.n_layers} layers, {cfg.moe.n_experts} experts top "
+        f"{cfg.moe.top_k}) on one rank: prefill {MESH_MOE_PREFILL} {one['prefill_ms']:.1f} ms, "
+        f"decode {one['decode_ms']:.2f} ms a step, train step {MESH_MOE_TRAIN} "
+        f"{one['train_ms']:.1f} ms (loss {one['metrics']['loss']:.4f}); dropped pairs "
+        f"{mesh_drops(drops)}; {smi}")
+    for dims in MESH_LM:
+        for impl in ("gather", "a2a"):
+            drops = []
+            mcfg = dataclasses.replace(cfg, moe_impl=impl)
+            run = mesh_moe_once(mcfg, make_test_mesh(*dims, device=dev), dev, drops)
+            same = float((run["tokens"] == one["tokens"]).float().mean())
+            found[f"{dims[0]}x{dims[1]} {impl}"] = dict(run, tokens=None, same_tokens=same)
+            log(f"meshes moe over {dims[0]} x {dims[1]}, {impl}: prefill {run['prefill_ms']:.1f} "
+                f"ms ({one['prefill_ms']:.1f} on one rank), decode {run['decode_ms']:.2f} ms a "
+                f"step ({one['decode_ms']:.2f}), train step {run['train_ms']:.1f} ms "
+                f"({one['train_ms']:.1f}), loss {run['metrics']['loss']:.4f} "
+                f"({one['metrics']['loss']:.4f}); decode tokens equal to one rank's on "
+                f"{100 * same:.1f}% (capacities follow the per-rank batch); dropped pairs "
+                f"per rank: {mesh_drops(drops)}; {smi}")
+    gate = dataclasses.replace(cfg, n_layers=LM_GATE_LAYERS, dtype="float32",
+                               vocab=MESH_MOE_GATE_VOCAB)
+    log(f"meshes moe runs {time.perf_counter() - t0:.1f} s")
+    for dims in MESH_LM:
+        for impl in ("gather", "a2a"):
+            t1 = time.perf_counter()
+            g = mesh_moe_gate(dataclasses.replace(gate, moe_impl=impl), dims, dev)
+            found[f"gate {dims[0]}x{dims[1]} {impl}"] = g
+            log(f"meshes moe gate over {dims[0]} x {dims[1]}, {impl}, {LM_GATE_LAYERS} layers "
+                f"f32, vocab {gate.vocab}: card = CPU, prefill {MESH_MOE_GATE} logits within {g['logits_err']:.3g} "
+                f"(tolerance {LM_F32_ATOL}), {MESH_MOE_GATE_STEPS} decode steps token for "
+                f"token, train metrics within {g['metrics_err']:.3g} of max(1, |value|) and "
+                f"parameters within {g['params_err']:.3g} (tolerance {LM_TRAIN_ATOL}); "
+                f"{time.perf_counter() - t1:.1f} s")
+    torch.cuda.empty_cache()
+    found["s"] = time.perf_counter() - t0
+    return found
+
+
+def mesh_psum(cfg, dev) -> dict:
+    """(e) Two pod ranks, each with the gradients of layer 0's weights for
+    one half of a MESH_MOE_TRAIN batch of (b)'s model on one rank, in f32,
+    reduced twice by ``compressed_psum_pod``: after each call every rank's
+    error buffer must equal its x - deq (x = g + the previous buffer), and
+    the result the mean of the ranks' deq."""
+    import torch
+
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import transformer as ttr
+    from repro_torch.train import grad_compress as gc
+
+    model = ttr.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    leaves = list(model.layers[0].values())
+    tb, ts = MESH_MOE_TRAIN
+    toks = torch.randint(1, cfg.vocab, (tb, ts + 1),
+                         generator=torch.Generator().manual_seed(4)).to(dev)
+    grads = []
+    for p in range(2):
+        loss, _, _ = ttr.loss_fn(model, toks[p:p + 1, :-1], toks[p:p + 1, 1:])
+        grads.append([g.float() for g in torch.autograd.grad(loss, leaves)])
+    del model, leaves
+    mesh = make_test_mesh(1, 1, pod=2, device=dev)
+    err = [gc.init_error_buffers(g) for g in grads]
+    n = sum(g.numel() for g in grads[0])
+    for call in range(2):
+        red, new = gc.compressed_psum_pod(grads, err, mesh)
+        for i in range(len(grads[0])):
+            deqs = []
+            for p in range(2):
+                x = grads[p][i] + err[p][i]
+                q, scale = gc._quantize(x)
+                deqs.append(q.float() * scale)
+                if not torch.equal(new[p][i], x - deqs[-1]):
+                    raise AssertionError(f"meshes psum call {call}: rank {p} leaf {i}: the error "
+                                         f"buffer is not x - deq")
+            if not torch.equal(red[i], (deqs[0] + deqs[1]) / 2):
+                raise AssertionError(f"meshes psum call {call}: leaf {i} is not the ranks' mean")
+        err = new
+    resid = max(float(e.abs().max()) for e in err[0])
+    ratio = gc.compression_ratio_bytes(grads[0])
+    del grads, err, red, new
+    torch.cuda.empty_cache()
+    return dict(elements=n, residual_max=resid, ratio=ratio["ratio"])
+
+
+def mesh_recsys(arch, dev, smi) -> dict:
+    """(c) ``arch`` whole on one rank and over MESH_REC_MESH (the meshed
+    model's leaves copied from the one-rank model's): serve_bulk equal bit
+    for bit (timed, after an untimed call), then two train_batch steps each
+    from those weights, the first's metrics within MESH_ATOL of max(1,
+    |value|), the second timed."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import build_bundle, recsys
+    from repro_torch.models.api import TrainState, copy_leaves
+
+    cfg, shapes = get_config(arch)
+    serve_shape = next(s for s in shapes if s.name == "serve_bulk")
+    train_shape = next(s for s in shapes if s.name == "train_batch")
+    torch.cuda.reset_peak_memory_stats()
+    one_mesh, mesh = make_test_mesh(1, 1, device=dev), make_test_mesh(*MESH_REC_MESH, device=dev)
+    one = build_bundle(cfg, one_mesh).init(torch.Generator(device=dev).manual_seed(0))
+    meshed = recsys.new_model(cfg, mesh=mesh)
+    copy_leaves(meshed, one)
+    slices = [(tuple(t.shape), t.numel() * t.element_size() / 2**30, str(t.device))
+              for t in meshed.shards("tables")]
+    out = {}
+    sbatch = rec_batches(cfg, serve_shape, one_mesh, [1])[0]
+    for name, model, m in (("one", one, one_mesh), ("meshed", meshed, mesh)):
+        fn = build_bundle(cfg, m).step(serve_shape).fn
+        fn(model, sbatch)
+        out[name], ms = host_ms(lambda: fn(model, sbatch))
+        out[name + "_serve_ms"] = ms
+    if not torch.equal(out["one"], out["meshed"]):
+        raise AssertionError(f"meshes {arch}: meshed serve scores differ from one rank's by "
+                             f"{float((out['one'] - out['meshed']).abs().max())}")
+    tbatch = rec_batches(cfg, train_shape, one_mesh, [2])[0]
+
+    def train(model, m):
+        """The first step's metrics, the second's time."""
+        bundle = build_bundle(cfg, m)
+        state = TrainState(model, bundle.optimizer(model))
+        fn = bundle.step(train_shape).fn
+        _, met = fn(state, tbatch)
+        _, ms = host_ms(lambda: fn(state, tbatch))
+        return torch.stack([met["loss"], met["grad_norm"]]).cpu(), ms
+
+    metrics = {}
+    metrics["one"], out["one_train_ms"] = train(one, one_mesh)
+    del one
+    torch.cuda.empty_cache()
+    metrics["meshed"], out["meshed_train_ms"] = train(meshed, mesh)
+    del meshed
+    torch.cuda.empty_cache()
+    m_err = metric_err(metrics["meshed"], metrics["one"])
+    if m_err > MESH_ATOL:
+        raise AssertionError(f"meshes {arch}: train metrics {metrics['meshed'].tolist()} vs "
+                             f"{metrics['one'].tolist()}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    found = dict(serve_one_ms=out["one_serve_ms"], serve_ms=out["meshed_serve_ms"],
+                 train_one_ms=out["one_train_ms"], train_ms=out["meshed_train_ms"],
+                 metrics_err=m_err, peak_gib=peak, slices=slices)
+    log(f"meshes {arch} over {MESH_REC_MESH[0]} x {MESH_REC_MESH[1]}: table slices "
+        + ", ".join(f"{sh} {gib:.3f} GiB on {d}" for sh, gib, d in slices)
+        + f"; serve_bulk [{serve_shape['batch']}] equal to one rank's bit for bit, "
+        f"{found['serve_ms']:.1f} ms ({found['serve_one_ms']:.1f} on one rank); train step "
+        f"[{train_shape['batch']}] {found['train_ms']:.1f} ms ({found['train_one_ms']:.1f}), "
+        f"metrics within {m_err:.3g} of max(1, |value|) (tolerance {MESH_ATOL}); peak "
+        f"{peak:.2f} GiB; {smi}")
+    return found
+
+
+def mesh_graph(dev, smi) -> dict:
+    """(d) DimeNet's CONFIG on full_graph_sm over MESH_GRAPH_MESH: one
+    train step on the card (timed, after an untimed step from a copy),
+    against the same step on the CPU over a CPU mesh (metrics and
+    parameters within MESH_ATOL of max(1, |value|)); the one-rank step on
+    the batch laid out for one shard is logged beside it, not held: the
+    reference's meshed edge gather adds every rank's partial gather into
+    every rank's triplets, so its meshed model is another function."""
+    import copy
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.smoke import make_smoke_inputs
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import build_bundle
+    from repro_torch.models.api import TrainState
+
+    cfg, shapes = get_config("dimenet")
+    shape = next(s for s in shapes if s.name == "full_graph_sm")
+    mesh = make_test_mesh(*MESH_GRAPH_MESH, device=dev)
+    cpu_mesh = make_test_mesh(*MESH_GRAPH_MESH, device="cpu")
+    batch = make_smoke_inputs(cfg, shape, cpu_mesh, seed=0)["batch"]
+    one_batch = make_smoke_inputs(cfg, shape, make_test_mesh(1, 1, device="cpu"), seed=0)["batch"]
+    init = build_bundle(cfg, mesh).init(torch.Generator(device=dev).manual_seed(0), shape)
+    card_batch = {k: v.to(dev) for k, v in batch.items()}
+    res = {}
+    for name, m, model, b in (
+            ("warm", mesh, copy.deepcopy(init), card_batch),
+            ("card", mesh, copy.deepcopy(init), card_batch),
+            ("cpu", cpu_mesh, copy.deepcopy(init).to("cpu"), batch),
+            ("one", make_test_mesh(1, 1, device=dev), copy.deepcopy(init),
+             {k: v.to(dev) for k, v in one_batch.items()})):
+        bundle = build_bundle(cfg, m)
+        state = TrainState(model, bundle.optimizer(model))
+        fn = bundle.step(shape).fn
+        (_, met), ms = host_ms(lambda: fn(state, b))
+        res[name] = (torch.stack([met["loss"], met["grad_norm"]]).cpu(), model, ms)
+    m_err = metric_err(res["card"][0], res["cpu"][0])
+    p_err = max(float((x.detach().cpu() - y.detach()).abs().max())
+                for x, y in zip(res["card"][1].parameters(), res["cpu"][1].parameters()))
+    if not (m_err <= MESH_ATOL and p_err <= MESH_ATOL):
+        raise AssertionError(f"meshes graph: card != CPU over {MESH_GRAPH_MESH}: "
+                             f"{res['card'][0].tolist()} vs {res['cpu'][0].tolist()}, "
+                             f"parameters by {p_err}")
+    gap = metric_err(res["card"][0], res["one"][0])
+    found = dict(ms=res["card"][2], one_ms=res["one"][2], metrics_err=m_err, params_err=p_err,
+                 one_rank_gap=gap, loss=float(res["card"][0][0]), one_loss=float(res["one"][0][0]))
+    log(f"meshes graph dimenet full_graph_sm over {MESH_GRAPH_MESH[0]} x {MESH_GRAPH_MESH[1]}: "
+        f"one train step {found['ms']:.1f} ms ({found['one_ms']:.1f} ms on one rank); card = CPU "
+        f"(metrics within {m_err:.3g} of max(1, |value|), parameters within {p_err:.3g}; "
+        f"tolerance {MESH_ATOL}); loss {found['loss']:.5f} against {found['one_loss']:.5f} on "
+        f"one rank ({gap:.3g} apart: the reference's meshed edge gather is another function); "
+        f"{smi}")
+    del res, init
+    torch.cuda.empty_cache()
+    return found
+
+
+def mesh_models_phase(smi, dev="cuda") -> dict:
+    """24. The meshed models on the card, every rank on it: (a) the dense
+    LM's decode, (b) the MoE LM's gather and a2a paths and their card = CPU
+    gate, (c) the row-sharded recsys tables, (d) edge-sharded DimeNet, (e)
+    the pod-axis gradient compression."""
+    import torch
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    dense, moe = lm_configs()                 # phase 20's
+    found = {"dense": mesh_dense(dense, dev, smi)}
+    log(f"meshes dense {found['dense']['s']:.1f} s")
+    found["moe"] = mesh_moe(moe, dev, smi)
+    log(f"meshes moe {found['moe']['s']:.1f} s")
+    t0 = time.perf_counter()
+    psum = mesh_psum(moe, dev)
+    found["psum"] = psum
+    log(f"meshes psum: compressed_psum_pod over 2 pod ranks, {psum['elements']:,} gradient "
+        f"elements of (b)'s layer 0 a rank, two calls: every error buffer equal to x - deq bit "
+        f"for bit and the result the ranks' mean; largest residual {psum['residual_max']:.3g}; "
+        f"{psum['ratio']:.1f}x fewer bytes than f32; {time.perf_counter() - t0:.1f} s")
+    for arch in MESH_REC:
+        t0 = time.perf_counter()
+        found[arch] = mesh_recsys(arch, dev, smi)
+        log(f"meshes {arch} {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    found["graph"] = mesh_graph(dev, smi)
+    log(f"meshes graph {time.perf_counter() - t0:.1f} s")
+    log(f"meshes phase {time.perf_counter() - t_phase:.1f} s; {smi}")
+    return found
+
+
 # ---------------------------------------------------------------- phases
 
 def main(n_base: int = N_BASE, n_queries: int = N_QUERIES) -> int:
@@ -3706,6 +4245,7 @@ def main(n_base: int = N_BASE, n_queries: int = N_QUERIES) -> int:
     lm_train_phase(smi)
     recsys_phase(smi)
     graph_phase(smi)
+    mesh_models_phase(smi)
     for kern in kernels:
         for path, found in (("mesh", meshed), ("cluster", clustered)):
             if kern["name"] in found:

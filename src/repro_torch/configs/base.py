@@ -21,9 +21,9 @@ class MoEConfig:
 
 @dataclasses.dataclass(frozen=True)
 class LMConfig:
-    """The JAX config's fields, with its names and defaults, but for the
-    meshed LM's knobs (``moe_impl``, ``ffn_impl``), which come with the
-    slice that reads them."""
+    """The JAX config's fields, with its names and defaults. ``moe_impl``
+    ("gather" or "a2a") and ``ffn_impl`` ("gatherw" or "sp") choose the
+    meshed MoE and FFN; another value raises."""
     arch: str
     n_layers: int
     d_model: int
@@ -37,9 +37,17 @@ class LMConfig:
     dtype: str = "bfloat16"
     remat: str = "full"             # full | dots | none (per layer, in training)
     attn_block: int = 1024          # flash-scan KV block
+    moe_impl: str = "gather"        # gather (psum combine) | a2a (expert-parallel all-to-all)
     logits_chunk: int = 0           # 0 = unchunked loss
     grad_accum: int = 1             # microbatches per step (memory lever)
+    ffn_impl: str = "gatherw"       # gatherw (whole weights) | sp (F split over "model")
     attn_score_dtype: str = "float32"  # float32 | bfloat16 (materialized scores)
+
+    def __post_init__(self):
+        if self.moe_impl not in ("gather", "a2a"):
+            raise ValueError(f"moe_impl {self.moe_impl!r}: gather or a2a")
+        if self.ffn_impl not in ("gatherw", "sp"):
+            raise ValueError(f"ffn_impl {self.ffn_impl!r}: gatherw or sp")
 
     @property
     def param_count(self) -> int:

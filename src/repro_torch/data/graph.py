@@ -4,8 +4,8 @@
 Triplets are sorted so that triplet t lives on the shard owning edge ji[t]
 (the reference's layout for its edge-sharded mesh: the triplet→edge segment
 sum needs no collective there); ``trip_ji_local`` holds the LOCAL edge offset
-within that shard. The port's DimeNet runs on one device (``n_shards`` 1),
-where the local offset is the edge id.
+within that shard, whose rank ``models.dimenet`` gives the shard's edges.
+With ``n_shards`` 1 the local offset is the edge id.
 """
 from __future__ import annotations
 

@@ -13,7 +13,12 @@ from repro_torch.data.graph import build_graph_batch
 
 def make_smoke_inputs(config, shape, mesh, seed: int = 0) -> dict:
     """Keyword arguments for ``StepDef.fn``'s data arguments, as torch
-    tensors on the mesh's first device."""
+    tensors: the reference's draws, placed as its ``input_pspecs`` place
+    them. A decode cache is cut into the ranks' slices
+    (``transformer.split_cache``; one rank's is the whole cache); every
+    other input is whole on the mesh's first device, and the step cuts it
+    over the ranks (the batch over the batch axes, a graph's edges and
+    triplets over every rank, laid out for ``len(mesh.devices)`` shards)."""
     host = np.random.default_rng(seed)
     dev = mesh.devices[0]
 
@@ -32,7 +37,9 @@ def make_smoke_inputs(config, shape, mesh, seed: int = 0) -> dict:
             cshape = (config.n_layers, gb, s, config.n_kv_heads, config.head_dim)
             cache = {"k": put(host.normal(0, 1, cshape).astype(np.float32), dt),
                      "v": put(host.normal(0, 1, cshape).astype(np.float32), dt)}
-            return {"cache": cache,
+            from repro_torch.models.transformer import split_cache
+
+            return {"cache": split_cache(cache, mesh),
                     "tokens": put(host.integers(1, config.vocab, (gb, 1)).astype(np.int32)),
                     "pos": torch.tensor(s // 2, dtype=torch.int32, device=dev)}
 

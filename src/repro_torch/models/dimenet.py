@@ -1,28 +1,44 @@
 """DimeNet (Klicpera et al., arXiv:2003.03123): directional message passing
 with triplet interactions (counterpart of ``repro/models/dimenet.py``),
-training on one device.
+training over a mesh of ranks (``launch.mesh``).
 
   * parameters: the reference's tree, one tensor a leaf (``api.TreeModel``),
     the blocks' weights stacked [n_blocks, ...] as there; ``node_proj``'s
     input width follows the shape's ``d_feat`` (0: the atom-type embedding,
     16 wide); ``from_jax_params`` / ``to_jax_params`` carry a JAX tree by
     copying;
-  * the reference's sharded ops on one device: an edge gather (``m[kj]``,
-    ``hx[src]``) is ``layers.take_rows``, and the triplet→edge and
-    edge→node sums are ``core.kmeans.segment_sum``, both with backward and
-    forward sums in a fixed order, so a step gives the same bits on every
-    run on the card (``index_add_`` would add by float atomics);
+  * placement, as the reference's ``shard_map`` regions: the edge arrays
+    are cut over the flattened mesh (every axis, row-major), rank ``r``
+    holding edges [r·E_loc, (r+1)·E_loc) and the triplets [r·T_loc,
+    (r+1)·T_loc), which ``data.graph`` aligns with the shard of their ji
+    edge; node arrays are whole, on the mesh's first device, and so are the
+    weights (a rank on another device reads their ``api.replica``). Each rank
+    computes its edges' and triplets' features; the three ops that cross
+    ranks are the reference's:
+      - ``sharded_edge_gather``: each rank gathers the rows of its own index
+        slice that fall in its edge range (zeros elsewhere), and the ranks'
+        partials are summed in rank order; every rank gets that sum. As in
+        the reference's psum, slot i of the sum adds rank r's i-th triplet
+        for every r, so on more than one rank the meshed model is not the
+        one-rank model: it is the reference's meshed function;
+      - ``sharded_segment_to_nodes``: each rank's segment sum over its
+        edges, summed in rank order;
+      - ``local_segment_to_edges``: each rank's segment sum of its triplets
+        into its own edges (``trip_ji_local``), no collective;
+    an edge gather of node rows (``hx[src]``) or of a rank's own edges
+    (``m[kj]``) is ``layers.take_rows``, and the segment sums are
+    ``core.kmeans.segment_sum``, both with backward and forward sums in a
+    fixed order, so a step gives the same bits on every run on the card
+    (``index_add_`` would add by float atomics);
   * each interaction block runs under ``torch.utils.checkpoint`` when
     ``cfg.remat`` is "full" and autograd records, as the reference's
     ``jax.checkpoint`` of its scan body: only the block's inputs are kept;
   * training: the masked node MSE, gradients clipped to global norm 1, then
     the bundle's AdamW (cosine schedule 1e-3, 100 warm-up steps of 10,000).
 
-The reference shards the edges and triplets over its flattened mesh (a
-partial gather and psum across shards); that meshed path is not ported yet:
-a mesh other than 1 × 1 raises. Simplification kept from the reference: the
-spherical basis is a Chebyshev angular × sinc radial product, with the
-paper's n_spherical × n_radial feature count.
+Simplification kept from the reference: the spherical basis is a Chebyshev
+angular × sinc radial product, with the paper's n_spherical × n_radial
+feature count.
 """
 from __future__ import annotations
 
@@ -36,11 +52,10 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import GNNConfig
 from repro_torch.core.kmeans import segment_sum
 from repro_torch.models.api import (ModelBundle, ShapeSpec, StepDef, TreeModel, adamw,
-                                    check_one_device, from_jax_tree, nest, sds, to_jax_tree)
+                                    from_jax_tree, nest, on, replica, sds, to_jax_tree)
 from repro_torch.models.layers import take_rows
 from repro_torch.train import optimizer as opt
 
-_MESHED = "DimeNet's edge-sharded gathers and segment sums"
 BLOCK_WEIGHTS = ("w_sbf", "w_kj", "w_bil", "w_e1", "w_e2", "out_rbf", "out_w")
 
 
@@ -114,6 +129,11 @@ def param_specs(cfg: GNNConfig, d_feat: int) -> dict:
     return nest({k: sds(s) for k, s in _param_defs(cfg, d_feat).items()})
 
 
+def param_pspecs(cfg: GNNConfig, d_feat: int, mesh) -> dict:
+    """Every parameter replicated (``()``), as in the reference."""
+    return nest({k: () for k in _param_defs(cfg, d_feat)})
+
+
 @torch.no_grad()
 def init_params(cfg: GNNConfig, d_feat: int, generator: torch.Generator,
                 device=None) -> TreeModel:
@@ -142,66 +162,150 @@ def to_jax_params(model: TreeModel) -> dict:
     return to_jax_tree(model)
 
 
+# ----------------------------------------------------------------- sharded ops
+
+def sharded_edge_gather(feats: list, idx: list, devices: list) -> list:
+    """``feat[idx]`` with ``feats`` (rank r's edge rows [E_loc, H]) and
+    ``idx`` (rank r's global edge ids [T_loc]) cut over the ranks: rank r
+    gathers the rows of its ``idx`` in its own edge range (zeros elsewhere),
+    the partials are summed in rank order and every rank gets the sum. An
+    id outside the rank's range reads row ``(id - e0) mod E_loc`` (zeroed
+    all the same), so the backward meets no long run of one row
+    (``recsys._lookup``)."""
+    e_loc = feats[0].shape[0]
+    tot = None
+    for r, (feat, ids) in enumerate(zip(feats, idx)):
+        rel = ids - r * e_loc
+        ok = (rel >= 0) & (rel < e_loc)
+        part = on(torch.where(ok[:, None], take_rows(feat, rel.remainder(e_loc)), 0.0),
+                  devices[0])
+        tot = part if tot is None else tot + part
+    return [on(tot, dev) for dev in devices]
+
+
+def sharded_segment_to_nodes(feats: list, dst: list, n_nodes: int, devices: list):
+    """Edge rows into whole node rows: each rank's segment sum [N, H] over
+    its edges, summed in rank order on the first device."""
+    tot = None
+    for feat, d in zip(feats, dst):
+        part = on(segment_sum(feat, d, n_nodes), devices[0])
+        tot = part if tot is None else tot + part
+    return tot
+
+
+def local_segment_to_edges(trips: list, ji_local: list, e_loc: int) -> list:
+    """Triplet rows into edge rows, each rank's into its own ``e_loc``
+    edges (the triplets were aligned with their ji edge's rank): no
+    collective."""
+    return [segment_sum(t, jl, e_loc) for t, jl in zip(trips, ji_local)]
+
+
 # ----------------------------------------------------------------- forward
 
-def _block(m, node_out, w_sbf, w_kj, w_bil, w_e1, w_e2, out_rbf, out_w, *, sbf, rbf, kj,
-           ji_local, dst, tmask, emask):
-    """One interaction block: triplet messages into edges, edges into nodes."""
-    a = sbf @ w_sbf                                             # [T, nbl]
-    u = take_rows(m, kj) @ w_kj                                 # [T, H]
-    msg = torch.zeros_like(u)
-    for b in range(w_bil.shape[0]):                             # unrolled bilinear
-        msg = msg + a[:, b:b + 1] * (u @ w_bil[b])
-    msg = msg * tmask
-    agg = segment_sum(msg, ji_local, m.shape[0])
-    m = (m + F.silu(F.silu((m + agg) @ w_e1) @ w_e2)) * emask
-    contrib = segment_sum((rbf @ out_rbf) * m, dst, node_out.shape[0])
-    return m, node_out + contrib @ out_w
+def _block(m, node_out, ws, out_w, *, sbf, rbf, kj, ji_local, dst, tmask, emask, devices):
+    """One interaction block over the ranks' lists (``m`` etc., one tensor a
+    rank): triplet messages into edges, edges into nodes. ``ws``: the
+    block's (w_sbf, w_kj, w_bil, w_e1, w_e2, out_rbf) on each of the ranks'
+    distinct devices in turn, flat; ``out_w`` on the first."""
+    k = len(BLOCK_WEIGHTS) - 1
+    at = {dev: i * k for i, dev in enumerate(dict.fromkeys(devices))}
+    ws = [ws[at[dev]:at[dev] + k] for dev in devices]
+    u = sharded_edge_gather(m, kj, devices)                     # [T_loc, H] a rank
+    agg = []
+    for r, (w_sbf_r, w_kj_r, w_bil_r, *_) in enumerate(ws):
+        a = sbf[r] @ w_sbf_r                                    # [T_loc, nbl]
+        u_r = u[r] @ w_kj_r                                     # [T_loc, H]
+        msg = torch.zeros_like(u_r)
+        for b in range(w_bil_r.shape[0]):                       # unrolled bilinear
+            msg = msg + a[:, b:b + 1] * (u_r @ w_bil_r[b])
+        agg.append(msg * tmask[r])
+    agg = local_segment_to_edges(agg, ji_local, m[0].shape[0])
+    m = [(m_r + F.silu(F.silu((m_r + agg_r) @ w[3]) @ w[4])) * em
+         for m_r, agg_r, w, em in zip(m, agg, ws, emask)]
+    contrib = sharded_segment_to_nodes([(rb @ w[5]) * m_r for rb, m_r, w in zip(rbf, m, ws)],
+                                       dst, node_out.shape[0], devices)
+    return (*m, node_out + contrib @ out_w)
 
 
-def forward(model: TreeModel, batch: dict, *, n_nodes: int, d_feat: int) -> torch.Tensor:
+def rank_slices(batch: dict, devices: list) -> dict:
+    """The edge and triplet arrays cut over ``devices`` (the flattened
+    mesh's ranks): name -> one slice a rank, on its device. The number of
+    ranks must divide both counts."""
+    n = len(devices)
+    out = {}
+    for keys in (("src", "dst", "edge_mask"),
+                 ("trip_kj", "trip_ji", "trip_ji_local", "trip_mask")):
+        size = batch[keys[0]].shape[0]
+        if size % n:
+            raise ValueError(f"{size} {'edges' if keys[0] == 'src' else 'triplets'} do not "
+                             f"split over {n} ranks")
+        for k in keys:
+            out[k] = [on(c, dev) for c, dev in zip(batch[k].chunk(n), devices)]
+    return out
+
+
+def forward(model: TreeModel, batch: dict, *, n_nodes: int, d_feat: int,
+            devices=None) -> torch.Tensor:
     """batch: pos [N, 3], feat [N, d_feat] or z [N], edge src / dst [E],
-    triplet kj [T] and ji_local [T] (edge ids; the local offset is the edge
-    id on one device), edge_mask [E], trip_mask [T]. Returns per-node
-    scalar predictions [N]."""
+    triplet kj and ji [T] (global edge ids) and ji_local [T] (the ji edge's
+    offset within its rank's slice), edge_mask [E], trip_mask [T], the edge
+    and triplet arrays cut over ``devices`` (the flattened mesh's ranks;
+    default one rank on the model's device). Returns per-node scalar
+    predictions [N] on the first device."""
     cfg = model.cfg
-    pos = batch["pos"]
-    src, dst = batch["src"].long(), batch["dst"].long()
-    emask = batch["edge_mask"].float()[:, None]
-    tmask = batch["trip_mask"].float()[:, None]
-
+    devices = list(devices or [model.device])
+    dev0 = devices[0]
+    pos = on(batch["pos"], dev0)
     if d_feat > 0:
-        hx = batch["feat"] @ model["node_proj"]
+        hx = on(batch["feat"], dev0) @ model["node_proj"]
     else:
-        hx = take_rows(model["atom_embed"], batch["z"].long()) @ model["node_proj"]
-    hx = F.silu(hx)                                             # [N, H]
+        hx = take_rows(model["atom_embed"], on(batch["z"], dev0).long()) @ model["node_proj"]
+    hx = F.silu(hx)                                             # [N, H] whole
 
-    vec = pos[dst] - pos[src]                                   # [E, 3]
-    dist = torch.linalg.vector_norm(vec + 1e-9, dim=-1)
-    rbf = radial_basis(dist, cfg.n_radial)                      # [E, R]
-
-    m = F.silu(torch.cat([take_rows(hx, src), take_rows(hx, dst), rbf @ model["rbf_proj"]], -1)
-               @ model["edge_w"]) * emask                       # [E, H]
+    sl = rank_slices(batch, devices)
+    src = [t.long() for t in sl["src"]]
+    dst = [t.long() for t in sl["dst"]]
+    emask = [t.float()[:, None] for t in sl["edge_mask"]]
+    tmask = [t.float()[:, None] for t in sl["trip_mask"]]
+    kj = [t.long() for t in sl["trip_kj"]]
+    vec, dist, rbf, m = [], [], [], []
+    for r, dev in enumerate(devices):
+        pos_r, hx_r = on(pos, dev), on(hx, dev)
+        vec.append(pos_r[dst[r]] - pos_r[src[r]])               # [E_loc, 3]
+        dist.append(torch.linalg.vector_norm(vec[r] + 1e-9, dim=-1))
+        rbf.append(radial_basis(dist[r], cfg.n_radial))         # [E_loc, R]
+        m.append(F.silu(torch.cat([take_rows(hx_r, src[r]), take_rows(hx_r, dst[r]),
+                                   rbf[r] @ replica(model, model["rbf_proj"], dev)], -1)
+                        @ replica(model, model["edge_w"], dev)) * emask[r])  # [E_loc, H]
 
     # triplet geometry: angle between edge ji and edge kj at vertex j
-    kj = batch["trip_kj"].long()
-    v_ji, v_kj = vec[batch["trip_ji"].long()], vec[kj]          # [T, 3]
-    cos_t = torch.sum(-v_ji * v_kj, -1) / (
-        torch.linalg.vector_norm(v_ji, dim=-1) * torch.linalg.vector_norm(v_kj, dim=-1) + 1e-9)
-    angle = torch.arccos(torch.clamp(cos_t, -1 + 1e-6, 1 - 1e-6))
-    sbf = spherical_basis(angle, dist[kj], cfg.n_spherical, cfg.n_radial)   # [T, S*R]
+    v_ji = sharded_edge_gather(vec, [t.long() for t in sl["trip_ji"]], devices)   # [T_loc, 3]
+    v_kj = sharded_edge_gather(vec, kj, devices)
+    d_kj = sharded_edge_gather([d[:, None] for d in dist], kj, devices)
+    sbf = []
+    for a, b, d in zip(v_ji, v_kj, d_kj):
+        cos_t = torch.sum(-a * b, -1) / (
+            torch.linalg.vector_norm(a, dim=-1) * torch.linalg.vector_norm(b, dim=-1) + 1e-9)
+        angle = torch.arccos(torch.clamp(cos_t, -1 + 1e-6, 1 - 1e-6))
+        sbf.append(spherical_basis(angle, d[:, 0], cfg.n_spherical, cfg.n_radial))  # [T_loc, S*R]
 
     block = functools.partial(_block, sbf=sbf, rbf=rbf, kj=kj,
-                              ji_local=batch["trip_ji_local"].long(), dst=dst, tmask=tmask,
-                              emask=emask)
+                              ji_local=[t.long() for t in sl["trip_ji_local"]], dst=dst,
+                              tmask=tmask, emask=emask, devices=devices)
+    n = len(devices)
     remat = cfg.remat == "full" and torch.is_grad_enabled()
-    node_out = torch.zeros((n_nodes, cfg.d_hidden), dtype=torch.float32, device=m.device)
+    node_out = torch.zeros((n_nodes, cfg.d_hidden), dtype=torch.float32, device=dev0)
+    stacks = [replica(model, model[f"blocks.{w}"], dev)
+              for dev in dict.fromkeys(devices) for w in BLOCK_WEIGHTS[:-1]]
     for i in range(cfg.n_blocks):
-        weights = [model[f"blocks.{w}"][i] for w in BLOCK_WEIGHTS]
+        ws = [w[i] for w in stacks]
+        out_w = model["blocks.out_w"][i]
         if remat:
-            m, node_out = checkpoint(block, m, node_out, *weights, use_reentrant=False)
+            out = checkpoint(lambda *a: block(list(a[:n]), a[n], a[n + 1:-1], a[-1]), *m,
+                             node_out, *ws, out_w, use_reentrant=False)
         else:
-            m, node_out = block(m, node_out, *weights)
+            out = block(m, node_out, ws, out_w)
+        m, node_out = list(out[:n]), out[n]
     return (F.silu(node_out @ model["readout1"]) @ model["readout2"])[:, 0]   # [N]
 
 
@@ -216,14 +320,16 @@ def node_mse(pred: torch.Tensor, batch: dict) -> torch.Tensor:
 def make_train_step(cfg: GNNConfig, mesh, *, n_nodes: int, d_feat: int):
     """One optimizer step: ``train_step(state, batch) -> (state, metrics)``
     with ``state`` a ``TrainState`` (or any ``(model, tx)``), updated in
-    place. A leaf the loss does not reach (``atom_embed`` under features)
-    gets a zero gradient, as in JAX. Metrics: loss and grad_norm (before the
-    clip)."""
-    check_one_device(mesh, _MESHED)
+    place. The edge and triplet arrays are cut over the mesh's ranks, all
+    its axes flattened. A leaf the loss does not reach (``atom_embed`` under
+    features) gets a zero gradient, as in JAX. Metrics: loss and grad_norm
+    (before the clip)."""
+    devices = list(mesh.devices)
 
     def train_step(state, batch):
         model, tx = state
-        loss = node_mse(forward(model, batch, n_nodes=n_nodes, d_feat=d_feat), batch)
+        pred = forward(model, batch, n_nodes=n_nodes, d_feat=d_feat, devices=devices)
+        loss = node_mse(pred, {k: on(batch[k], pred.device) for k in ("node_mask", "target")})
         grads = torch.autograd.grad(loss, tx.params, allow_unused=True, materialize_grads=True)
         grads, gnorm = opt.clip_by_global_norm(grads, 1.0)
         tx.update(grads)
@@ -237,21 +343,22 @@ def _pad_to(n, mult):
 
 
 def make_bundle(cfg: GNNConfig, mesh) -> ModelBundle:
-    """The bundle over a 1 × 1 ``mesh``: ``init(generator, shape)`` builds
-    the model for the shape's ``d_feat`` on the mesh's device;
-    ``optimizer(model)`` is the reference's AdamW (cosine schedule 1e-3, 100
-    warm-up steps of 10,000); the ``graph_train`` step, called with
-    ``TrainState(model, optimizer(model))``."""
-    check_one_device(mesh, _MESHED)
+    """The bundle over ``mesh``: ``init(generator, shape)`` builds the model
+    for the shape's ``d_feat`` on the mesh's first device (the parameters
+    are replicated); ``optimizer(model)`` is the reference's AdamW (cosine
+    schedule 1e-3, 100 warm-up steps of 10,000); the ``graph_train`` step,
+    called with ``TrainState(model, optimizer(model))``, its edges and
+    triplets padded to a multiple of max(ranks, 256)."""
     device = mesh.devices[0]
+    nshard = len(mesh.devices)
 
     def step(shape: ShapeSpec) -> StepDef:
         if shape.kind != "graph_train":
             raise ValueError(f"unknown shape kind {shape.kind} for graph arch")
         n_graphs = shape.dims.get("batch", 1)
         n_nodes = shape["n_nodes"] * n_graphs
-        n_edges = _pad_to(shape["n_edges"] * n_graphs, 256)
-        n_trip = _pad_to(shape["n_edges"] * n_graphs * shape["triplet_mult"], 256)
+        n_edges = _pad_to(shape["n_edges"] * n_graphs, max(nshard, 256))
+        n_trip = _pad_to(shape["n_edges"] * n_graphs * shape["triplet_mult"], max(nshard, 256))
         d_feat = shape["d_feat"]
         specs = {"pos": sds((n_nodes, 3))}
         specs.update({k: sds((n_edges,), torch.int32) for k in ("src", "dst")})
@@ -276,6 +383,7 @@ def make_bundle(cfg: GNNConfig, mesh) -> ModelBundle:
         config=cfg,
         init=lambda generator, shape=None: init_params(cfg, d_feat_of(shape), generator, device),
         param_specs=lambda shape=None: param_specs(cfg, d_feat_of(shape)),
+        param_pspecs=lambda shape=None: param_pspecs(cfg, d_feat_of(shape), mesh),
         step=step,
         optimizer=lambda model: adamw(model, opt.cosine_schedule(1e-3, 100, 10_000)),
     )

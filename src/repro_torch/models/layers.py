@@ -1,6 +1,6 @@
 """Transformer building blocks (counterpart of ``repro/models/layers.py``):
 RMSNorm, RoPE, flash attention (a loop over KV blocks with an online softmax —
-no [S, S] matrix), GQA, the SwiGLU FFN and one device's MoE dispatch, expert
+no [S, S] matrix), GQA, the SwiGLU FFN and one rank's MoE dispatch, expert
 FFN and combine.
 
 Each op keeps the reference's precision rule. Where JAX asks an einsum for
@@ -22,8 +22,9 @@ choices keep a backward pass's bits the same on every run on the card:
     (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` of
     its scan body does, so no f32 [.., Sq, block] tile is kept per block.
 
-The expert-parallel pieces (``_sort_pack``, ``moe_a2a_local``) run only over a
-model axis larger than 1 and are not ported yet.
+The expert-parallel all-to-all MoE (``moe_a2a_local``) runs the reference's
+``shard_map`` body rank by rank: its all-to-alls are transposes of the
+ranks' send buffers (``all_to_all``).
 """
 from __future__ import annotations
 
@@ -166,24 +167,17 @@ def router_probs(x: torch.Tensor, router_w: torch.Tensor) -> torch.Tensor:
 
 
 def moe_dispatch_local(x_all: torch.Tensor, router_w: torch.Tensor, e0: int, e_loc: int,
-                       top_k: int, capacity: int):
+                       top_k: int, capacity: int, dropped: list | None = None):
     """Sort-based token-choice dispatch for the experts [e0, e0 + e_loc).
 
     x_all: [T, D]. Returns (buf [E_loc, C, D], gate_buf [E_loc, C] f32,
     tok_buf [E_loc, C] int32 with T as the drop sentinel). The top-k keeps
     ``jax.lax.top_k``'s order (equal probabilities: the lower expert first)
     through a stable descending sort; a (token, expert) pair past an expert's
-    capacity is dropped."""
+    capacity is dropped (``dropped``, when a list, gets their count)."""
     t, d = x_all.shape
     dev = x_all.device
-    probs = router_probs(x_all, router_w)
-    g, eidx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    g, eidx = g[:, :top_k], eidx[:, :top_k]                      # [T, k]
-    g = g / torch.clamp(g.sum(-1, keepdim=True), min=1e-9)       # renormalize top-k
-
-    flat_e = eidx.reshape(-1)
-    flat_t = torch.arange(t, device=dev)[:, None].expand_as(eidx).reshape(-1)
-    flat_g = g.reshape(-1)
+    flat_e, flat_t, flat_g = moe_route(x_all, router_w, top_k)
 
     local = (flat_e >= e0) & (flat_e < e0 + e_loc)
     key = torch.where(local, flat_e - e0, e_loc)                 # e_loc = trash bucket
@@ -191,6 +185,8 @@ def moe_dispatch_local(x_all: torch.Tensor, router_w: torch.Tensor, e0: int, e_l
     start = torch.searchsorted(skey, torch.arange(e_loc + 1, device=dev))
     pos = torch.arange(t * top_k, device=dev) - start[skey.clamp(0, e_loc)]
     keep = (skey < e_loc) & (pos < capacity)
+    if dropped is not None:
+        dropped.append(int((skey < e_loc).sum()) - int(keep.sum()))
     # the reference scatters with mode="drop": here a spare row e_loc takes
     # the dropped writes and is cut off
     row = torch.where(keep, skey, e_loc)
@@ -233,3 +229,92 @@ def moe_combine_local(expert_out: torch.Tensor, gate_buf: torch.Tensor,
         slot = order[(start[:-1] + j).clamp(max=order.numel() - 1)]
         out = out + torch.where((j < count)[:, None], take_rows(weighted, slot), 0.0)
     return out
+
+
+def _sort_pack(key: torch.Tensor, n_buckets: int, capacity: int) -> torch.Tensor:
+    """Sort-based bucketing: key [N] in [0, n_buckets) (else dropped).
+    Returns slot [n_buckets, capacity] int64 of indices into ``key``, in
+    their order within a bucket, sentinel N; a bucket's entries past
+    ``capacity`` are dropped."""
+    n = key.shape[0]
+    dev = key.device
+    key_c = torch.where((key >= 0) & (key < n_buckets), key, n_buckets)
+    skey, order = torch.sort(key_c, stable=True)
+    start = torch.searchsorted(skey, torch.arange(n_buckets + 1, device=dev, dtype=skey.dtype))
+    pos = torch.arange(n, device=dev) - start[skey.clamp(0, n_buckets)]
+    keep = (skey < n_buckets) & (pos < capacity)
+    # the reference scatters with mode="drop": a spare row takes the drops
+    row = torch.where(keep, skey, n_buckets)
+    col = torch.where(keep, pos, 0)
+    slot = torch.full((n_buckets + 1, capacity), n, dtype=torch.int64, device=dev)
+    slot[row, col] = order
+    return slot[:n_buckets]
+
+
+def all_to_all(bufs: list) -> list:
+    """The ranks' send buffers [n, C, ...] (rank j's row k goes to rank k)
+    -> the received ones: rank k gets [n, C, ...] with row j from rank j, on
+    its own buffer's device."""
+    n = len(bufs)
+    return [torch.stack([bufs[j][k].to(bufs[k].device) for j in range(n)]) for k in range(n)]
+
+
+def moe_route(x: torch.Tensor, router_w: torch.Tensor, top_k: int):
+    """(expert ids [T·k], token ids [T·k], gates [T·k] f32): the top-k
+    experts of every token in ``jax.lax.top_k``'s order, their gates
+    renormalized, flattened token-major."""
+    t = x.shape[0]
+    probs = router_probs(x, router_w)
+    g, eidx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    g, eidx = g[:, :top_k], eidx[:, :top_k]
+    g = g / torch.clamp(g.sum(-1, keepdim=True), min=1e-9)
+    flat_t = torch.arange(t, device=x.device)[:, None].expand_as(eidx).reshape(-1)
+    return eidx.reshape(-1), flat_t, g.reshape(-1)
+
+
+def moe_a2a_local(x: list, router_w: list, e_loc: int, top_k: int, c_send: int, c_exp: int,
+                  experts: list, dropped: list | None = None) -> list:
+    """Expert-parallel MoE over the model ranks of one batch row, rank by
+    rank. ``x[j]``: rank j's local tokens [T_loc, D]; ``router_w[j]`` its
+    copy of the router; ``experts[j]``: its (wi, wg, wo) slices [E_loc, ...]
+    (experts [j·E_loc, (j+1)·E_loc)). Each rank routes its tokens and packs
+    [model_n, c_send] send slots by destination rank (pairs past c_send
+    dropped); the all-to-all hands each rank the pairs for its experts,
+    which it packs into [E_loc, c_exp] (pairs past c_exp dropped), runs
+    through the expert FFN and sends back; each source combines the
+    returned rows with its gates, a token's slots added in slot order.
+    Returns each rank's output [T_loc, D] f32. ``dropped``, when a list,
+    gets each rank's count of routed pairs dropped (send and expert side)."""
+    model_n = len(x)
+    d = x[0].shape[1]
+    send_x, send_e, src = [], [], []
+    for j, xj in enumerate(x):
+        t = xj.shape[0]
+        flat_e, flat_t, flat_g = moe_route(xj, router_w[j], top_k)
+        slot = _sort_pack(flat_e // e_loc, model_n, c_send)       # [model_n, c_send]
+        pad = flat_e.shape[0]
+        e_pad = torch.cat([flat_e, flat_e.new_full((1,), -1)])
+        t_pad = torch.cat([flat_t, flat_t.new_full((1,), t)])
+        g_pad = torch.cat([flat_g, flat_g.new_zeros(1)])
+        x_pad = torch.cat([xj, xj.new_zeros((1, d))])
+        # the sentinel slot (pad) reads token t: the zero row, gate 0
+        send_x.append(take_rows(x_pad, t_pad[slot]))                 # [model_n, c_send, D]
+        send_e.append(e_pad[slot])
+        src.append((t_pad[slot], g_pad[slot], t))
+        if dropped is not None:
+            dropped.append(pad - int((slot < pad).sum()))
+    recv_x, recv_e = all_to_all(send_x), all_to_all(send_e)
+    back = []
+    for k in range(model_n):
+        rt = model_n * recv_x[k].shape[1]
+        rx = recv_x[k].reshape(rt, d)
+        re = recv_e[k].reshape(rt) - k * e_loc                      # negative = padding
+        slot2 = _sort_pack(re, e_loc, c_exp)               # [e_loc, c_exp], sentinel rt
+        rx_pad = torch.cat([rx, rx.new_zeros((1, d))])
+        eout = moe_expert_ffn(take_rows(rx_pad, slot2), *experts[k])
+        flat = moe_combine_local(eout, torch.ones(slot2.shape, device=rx.device), slot2, rt, 1)
+        back.append(flat.reshape(model_n, -1, d).to(x[k].dtype))
+        if dropped is not None:
+            dropped[k] += int(((re >= 0) & (re < e_loc)).sum()) - int((slot2 < rt).sum())
+    back = all_to_all(back)
+    return [moe_combine_local(b, gate, tok, t, top_k) for b, (tok, gate, t) in zip(back, src)]

@@ -686,13 +686,13 @@ def test_lm_prefill_and_decode_on_the_card_equal_the_cpu(cuda_device, arch):
     toks = torch.randint(1, cfg.vocab, (4, 64), generator=torch.Generator().manual_seed(1))
     out = {}
     for dev, model in (("cpu", cpu), (cuda_device, card)):
-        logits, cache = steps[dev][0](model, toks.to(dev))
-        out[dev] = logits.cpu(), {n: torch.nn.functional.pad(c, (0, 0, 0, 0, 0, 8))
+        logits, cache = steps[dev][0](model, toks.to(dev))            # one rank's slice
+        out[dev] = logits.cpu(), {n: [torch.nn.functional.pad(c[0], (0, 0, 0, 0, 0, 8))]
                                   for n, c in cache.items()}
     (lc, cc), (lg, cg) = out["cpu"], out[cuda_device]
     assert (lg - lc).abs().max() <= 1e-4
     for n in ("k", "v"):
-        assert (cg[n].cpu() - cc[n]).abs().max() <= 1e-4
+        assert (cg[n][0].cpu() - cc[n][0]).abs().max() <= 1e-4
     tok = lc.argmax(-1).to(torch.int32)[:, None]
     for pos in range(64, 72):
         nc, cc = steps["cpu"][1](cpu, cc, tok, pos)

@@ -165,7 +165,8 @@ def test_params_specs_bundle_and_smoke_inputs_match_jax(name):
     """from_jax_params -> to_jax_params is exact; the param and input specs
     are the reference's; the smoke batch is the reference's bytes; init
     draws std 1/sqrt(fan_in); the optimizer follows the reference's
-    schedule; another kind or a mesh over 2 ranks raises."""
+    schedule; another kind raises, and so does a step over 5 ranks, which do
+    not split the batch's edges."""
     cfg, shape, model, batch = _port(name)
     jcfg = jax_get_smoke("dimenet")[0]
     pnp = _jax(name)["np"]
@@ -194,8 +195,9 @@ def test_params_specs_bundle_and_smoke_inputs_match_jax(name):
     assert all(tx.lr_fn(s) == pytest.approx(float(sched(s)), rel=1e-6) for s in (1, 100, 5_000))
     with pytest.raises(ValueError, match="shape kind"):
         tb.step(ShapeSpec("x", "rec_train", {"batch": 1}))
-    with pytest.raises(NotImplementedError, match="edge-sharded"):
-        build_bundle(cfg, make_test_mesh(2, 1, device="cpu"))
+    step5 = build_bundle(cfg, make_test_mesh(5, 1, device="cpu")).step(shape)
+    with pytest.raises(ValueError, match="do not split over 5 ranks"):
+        step5.fn(TrainState(drawn, tb.optimizer(drawn)), batch)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 7])

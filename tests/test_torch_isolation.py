@@ -37,7 +37,8 @@ def test_no_module_imports_jax_or_the_jax_package():
                  "train/optimizer.py", "launch/train.py", "examples/lm_pretrain.py",
                  "models/recsys.py", "models/dimenet.py", "data/graph.py",
                  "configs/deepfm.py", "configs/autoint.py", "configs/mind.py",
-                 "configs/dlrm_rm2.py", "configs/dimenet.py"):
+                 "configs/dlrm_rm2.py", "configs/dimenet.py", "distributed/sharding.py",
+                 "train/grad_compress.py"):
         assert PKG / part in files
     bad = [(str(f.relative_to(PKG)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]
@@ -63,7 +64,8 @@ def test_importing_the_port_leaves_jax_unloaded():
             "repro_torch.examples.lm_pretrain, repro_torch.models.recsys, "
             "repro_torch.models.dimenet, repro_torch.data.graph, repro_torch.configs.deepfm, "
             "repro_torch.configs.autoint, repro_torch.configs.mind, "
-            "repro_torch.configs.dlrm_rm2, repro_torch.configs.dimenet; "
+            "repro_torch.configs.dlrm_rm2, repro_torch.configs.dimenet, "
+            "repro_torch.distributed.sharding, repro_torch.train.grad_compress; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(PKG.parent))

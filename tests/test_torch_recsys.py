@@ -268,8 +268,8 @@ def test_params_round_trip_specs_and_init(arch):
 def test_bundle_kinds_and_smoke_inputs_match_jax(arch):
     """Each kind's input specs are the reference's; the smoke inputs of each
     kind are the reference's bytes; the bundle's optimizer is the
-    reference's schedule; another kind, or a mesh over 2 model ranks,
-    raises."""
+    reference's schedule; another kind, or a mesh whose 3 model ranks do not
+    split V = 128, raises."""
     jcfg, tcfg = jax_get_smoke(arch)[0], get_smoke(arch)[0]
     jb, tb = jax_build_bundle(jcfg, JMESH), build_bundle(tcfg, TMESH)
     for shape in (*get_smoke(arch)[1], RETRIEVAL):
@@ -290,8 +290,8 @@ def test_bundle_kinds_and_smoke_inputs_match_jax(arch):
     assert tx.weight_decay == 0.0 and len(tx.params) == len(list(model.parameters()))
     with pytest.raises(ValueError, match="shape kind"):
         tb.step(ShapeSpec("x", "train", {"batch": 1}))
-    with pytest.raises(NotImplementedError, match="row-sharded tables"):
-        build_bundle(tcfg, make_test_mesh(1, 2, device="cpu"))
+    with pytest.raises(ValueError, match="vocab_per_field 128 does not split over 3"):
+        build_bundle(tcfg, make_test_mesh(1, 3, device="cpu"))
     if tcfg.interaction == "multi-interest":
         with pytest.raises(RuntimeError, match="mind_forward"):
             trs.forward(model, tin)

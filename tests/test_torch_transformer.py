@@ -111,9 +111,11 @@ def _check_tokens(jtok, ttok, logits, dtype):
 
 
 def _port_decode(c, shape, cache, tokens, pos):
-    """The bundle's decode step on ``cache`` (in place), and the logits of
-    the same step on a copy of the cache as it was."""
-    logits = ttr.decode_logits(c["model"], {n: t.clone() for n, t in cache.items()}, tokens, pos)
+    """The bundle's decode step on ``cache`` (the one rank's slice, in
+    place), and the logits of the same step on a copy of the cache as it
+    was."""
+    logits = ttr.decode_logits(c["model"], {n: [t.clone() for t in s] for n, s in cache.items()},
+                               tokens, pos)
     nxt, cache = c["tb"].step(shape).fn(c["model"], cache, tokens, pos)
     return nxt, cache, logits
 
@@ -140,6 +142,8 @@ def test_prefill_matches_jax(arch, dtype):
     with JMESH:
         jl, jc = c["jprefill"](c["params"], jin["tokens"])
     tl, tc = c["tb"].step(PREFILL).fn(c["model"], tin["tokens"])
+    assert len(tc["k"]) == len(tc["v"]) == 1                 # one rank: one slice, whole
+    tc = ttr.join_cache(tc, TMESH, 4)
     assert tl.dtype == torch.float32 and tl.shape == (4, c["tcfg"].vocab)
     _check_logits(jl, tl, dtype)
     for name in ("k", "v"):
@@ -157,20 +161,20 @@ def test_decode_matches_jax(arch, dtype):
     jin = jax_smoke_inputs(c["jcfg"], _jax_shape(shape), JMESH, seed=1)
     tin = make_smoke_inputs(c["tcfg"], shape, TMESH, seed=1)
     for name in ("k", "v"):
-        np.testing.assert_array_equal(_np(jin["cache"][name]), _np(tin["cache"][name]))
+        np.testing.assert_array_equal(_np(jin["cache"][name]), _np(tin["cache"][name][0]))
     np.testing.assert_array_equal(np.asarray(jin["tokens"]), tin["tokens"].numpy())
     assert int(jin["pos"]) == int(tin["pos"]) == shape["seq_len"] // 2
     with JMESH:
         jt, jc = c["jdecode"](c["params"], jin["cache"], jin["tokens"], jin["pos"])
-    before = tin["cache"]["k"].clone()
+    before = tin["cache"]["k"][0].clone()
     tt, tc, logits = _port_decode(c, shape, tin["cache"], tin["tokens"], tin["pos"])
-    assert tc["k"] is tin["cache"]["k"]                       # written in place
+    assert tc["k"][0] is tin["cache"]["k"][0]                 # written in place
     pos = int(tin["pos"])
-    changed = (tc["k"] != before).any(-1).any(-1)             # [L, B, S]
+    changed = (tc["k"][0] != before).any(-1).any(-1)          # [L, B, S]
     assert not changed[:, :, torch.arange(64) != pos].any()
     _check_tokens(jt, tt, logits, dtype)
     for name in ("k", "v"):
-        _check_cache(jc[name], tc[name], dtype, c["tcfg"].moe is not None)
+        _check_cache(jc[name], tc[name][0], dtype, c["tcfg"].moe is not None)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -186,7 +190,8 @@ def test_decode_continues_a_jax_prefill(arch, dtype):
             "seq_len": 48, "global_batch": 4})).fn)(c["params"], jnp.asarray(toks))
     pad = ((0, 0), (0, 0), (0, 16), (0, 0), (0, 0))
     jcache = {n: jnp.pad(jc[n], pad) for n in ("k", "v")}
-    tcache = {n: torch.from_numpy(_np(jcache[n])).to(getattr(torch, dtype)) for n in ("k", "v")}
+    tcache = ttr.split_cache({n: torch.from_numpy(_np(jcache[n])).to(getattr(torch, dtype))
+                              for n in ("k", "v")}, TMESH)
     tok = np.asarray(jl).argmax(-1).astype(np.int32)[:, None]
     for pos in (48, 49):
         with JMESH:
@@ -196,7 +201,7 @@ def test_decode_continues_a_jax_prefill(arch, dtype):
         _check_tokens(jnext, tnext, logits, dtype)
         tok = np.array(jnext)[:, None]
     for name in ("k", "v"):
-        _check_cache(jcache[name], tcache[name], dtype, c["tcfg"].moe is not None)
+        _check_cache(jcache[name], tcache[name][0], dtype, c["tcfg"].moe is not None)
 
 
 @pytest.mark.parametrize("q_offset", [0, 16])
@@ -281,7 +286,8 @@ def test_registry_matches_jax():
 def test_lm_bundle_scope():
     """Every LM kind of the reference builds a step (train: the train step
     over [gb, s] int32 tokens and labels, the bundle's optimizer the
-    reference's AdamW); meshes other than 1 × 1 raise."""
+    reference's AdamW); a mesh whose 3 model ranks do not split the
+    sequence raises."""
     cfg, shapes = get_smoke("stablelm-3b")
     bundle = build_bundle(cfg, TMESH)
     train = bundle.step(shapes[0])
@@ -296,8 +302,8 @@ def test_lm_bundle_scope():
     assert tx.step == 1 and set(metrics) == {"loss", "ce", "moe_aux", "grad_norm"}
     with pytest.raises(ValueError, match="shape kind"):
         bundle.step(ShapeSpec("x", "lira_serve", {"seq_len": 1, "global_batch": 1}))
-    with pytest.raises(NotImplementedError, match="one device"):
-        build_bundle(cfg, make_test_mesh(1, 2, device="cpu"))
+    with pytest.raises(ValueError, match="sequence 64 does not split over 3 model ranks"):
+        build_bundle(cfg, make_test_mesh(1, 3, device="cpu")).step(shapes[0])
     with pytest.raises(TypeError):
         build_bundle(object(), TMESH)
 
