@@ -264,7 +264,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                gather and a2a: prefill [4, 2048], 16 decode steps, one
                train step at [2, 4096], each rank's dropped pairs and ms
                against the unsharded steps, and the same meshed steps at 2
-               layers in f32 card = CPU; (c) dlrm-rm2 and mind whole (1M
+               layers in f32 card = CPU (gather over 1 x 4, a2a over 2 x
+               2); (c) dlrm-rm2 and mind whole (1M
                ids a field) over 1 x 4: serve_bulk equal to the unsharded
                scores bit for bit, one train step at 65,536 within 1e-4 of
                max(1, |value|), each rank's table slice and the peak; (d)
@@ -273,11 +274,34 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                reference's meshed edge gather is another function); (e)
                compressed_psum_pod over a 2-pod mesh on (b)'s gradients:
                the error buffers hold x - deq exactly.
+ 25. last    — after 24, the last modules: (a) a bf16_toy tier (the f32
+               scan over a bfloat16 vector plane) registered here with
+               tiers.register, outside the package, built over phase 4's
+               1,000,000 points with lira-ann-q's recipe and serving its
+               10,000 queries in batches of 1,000 through the unchanged
+               engine: the config's and the stats' tier, a bf16 plane, the
+               bf16 l2_topk_qbuf launched, recall@100 at least 0.9 and
+               within 0.01 of phase 4's f32, one batch impl="cuda" = "ref";
+               the kernel on the bf16 plane held against its plain version
+               and timed beside its bound (the kernels line's
+               l2_topk_qbuf/bf16); (b) the autotuner's sweep of G, the
+               dispatch slots a block, at lira-ann-q's store shape: the L2
+               scan over that serve path's dispatch buffer in f32 and bf16,
+               the ADC scan (m 16, ks 256, rk 400) on synthetic operands of
+               the store's shape, and the dense dispatch of partition_topk
+               (128 queries to every partition): every G that fits gives the
+               calculator's launch's bits, each G's time logged, the winner
+               cached; (c) the dry run over one device (meta tensors) of
+               phase 21's stablelm-3b train step [8, 4096] and phase 22's
+               dlrm-rm2 train_batch [65,536]: its predicted peak within
+               LAST_DRYRUN_BAND of the card's torch.cuda.max_memory_allocated
+               from those phases, its counted FLOPs beside model_flops and
+               the phases' own bound models.
 Phases 20-24 launch none of the kernels: the LM's attention is the
 reference's plain block scan, its loss and optimizer plain XLA, the recsys
 family's embedding bag a gather and sum and DimeNet's message passing
 segment sums, and no Pallas kernel lies on their path.
-Phases 7-12, 15-16 and 17 zero the launch counters just before each path and
+Phases 7-12, 15-17 and 25 zero the launch counters just before each path and
 read them just after. Every matmul runs in full f32 (TF32 off for matmul and cuDNN),
 so the plain versions are exact oracles.
 The line before the last is the kernels JSON; the last line is
@@ -3451,6 +3475,9 @@ MESH_LM = ((1, 4), (2, 2))                    # (a), (b): (data, model)
 MESH_DENSE_STEPS = 16
 MESH_MOE_PREFILL, MESH_MOE_STEPS, MESH_MOE_TRAIN = (4, 2048), 16, (2, 4096)   # (b)
 MESH_MOE_GATE = (2, 64)                       # (b): 2 layers in f32, prefill and train
+# (b)'s gates: one a mesh, one a mode (each took 29-41 s; 1 x 4 and 2 x 2 in
+# both modes ran all four through PR 25)
+MESH_MOE_GATES = (((1, 4), "gather"), ((2, 2), "a2a"))
 MESH_MOE_GATE_VOCAB = 32_768                  # (b)'s gate: the meshed regions never read the vocab
 MESH_MOE_GATE_STEPS = 4
 MESH_BF16_STEPS = 4                           # (a): tests/test_torch_transformer.py's bf16 rule
@@ -3726,17 +3753,16 @@ def mesh_moe(cfg, dev, smi) -> dict:
     gate = dataclasses.replace(cfg, n_layers=LM_GATE_LAYERS, dtype="float32",
                                vocab=MESH_MOE_GATE_VOCAB)
     log(f"meshes moe runs {time.perf_counter() - t0:.1f} s")
-    for dims in MESH_LM:
-        for impl in ("gather", "a2a"):
-            t1 = time.perf_counter()
-            g = mesh_moe_gate(dataclasses.replace(gate, moe_impl=impl), dims, dev)
-            found[f"gate {dims[0]}x{dims[1]} {impl}"] = g
-            log(f"meshes moe gate over {dims[0]} x {dims[1]}, {impl}, {LM_GATE_LAYERS} layers "
-                f"f32, vocab {gate.vocab}: card = CPU, prefill {MESH_MOE_GATE} logits within {g['logits_err']:.3g} "
-                f"(tolerance {LM_F32_ATOL}), {MESH_MOE_GATE_STEPS} decode steps token for "
-                f"token, train metrics within {g['metrics_err']:.3g} of max(1, |value|) and "
-                f"parameters within {g['params_err']:.3g} (tolerance {LM_TRAIN_ATOL}); "
-                f"{time.perf_counter() - t1:.1f} s")
+    for dims, impl in MESH_MOE_GATES:
+        t1 = time.perf_counter()
+        g = mesh_moe_gate(dataclasses.replace(gate, moe_impl=impl), dims, dev)
+        found[f"gate {dims[0]}x{dims[1]} {impl}"] = g
+        log(f"meshes moe gate over {dims[0]} x {dims[1]}, {impl}, {LM_GATE_LAYERS} layers "
+            f"f32, vocab {gate.vocab}: card = CPU, prefill {MESH_MOE_GATE} logits within "
+            f"{g['logits_err']:.3g} (tolerance {LM_F32_ATOL}), {MESH_MOE_GATE_STEPS} decode "
+            f"steps token for token, train metrics within {g['metrics_err']:.3g} of max(1, |value|) and "
+            f"parameters within {g['params_err']:.3g} (tolerance {LM_TRAIN_ATOL}); "
+            f"{time.perf_counter() - t1:.1f} s")
     torch.cuda.empty_cache()
     found["s"] = time.perf_counter() - t0
     return found
@@ -3946,6 +3972,231 @@ def mesh_models_phase(smi, dev="cuda") -> dict:
     log(f"meshes graph {time.perf_counter() - t0:.1f} s")
     log(f"meshes phase {time.perf_counter() - t_phase:.1f} s; {smi}")
     return found
+
+
+# ---------------------------------------------------------------- the last modules
+
+LAST_TOY_RECALL, LAST_TOY_GAP = 0.9, 0.01      # (a): floor, and the most below phase 4's f32
+LAST_DENSE_QUERIES = 128                        # (b): partition_topk's q_batch
+# (c): the dry run's predicted peak over the card's measured one, a band
+# stated before the first card run (on the CPU, 56.38 GiB against 56.81 and
+# 43.43 against 43.56)
+LAST_DRYRUN_BAND = (0.8, 1.25)
+
+
+def last_toy_tier(ds, gti, recall_f32, smi, dev) -> dict:
+    """(a) The bf16 toy tier built and served through the unchanged engine;
+    returns the kernels-line entry of l2_topk_qbuf on its plane and the
+    engine's serve operands."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.metrics import recall_at_k
+    from repro_torch.kernels import dedup_topk as dd_mod, l2_topk as l2_mod
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import pq_adc as adc_mod
+    from repro_torch.serving import tiers
+    from repro_torch.serving.api import BuildConfig
+    from repro_torch.serving.engine import LiraEngine
+
+    @tiers.register
+    class Bf16ToyTier(tiers.F32Tier):
+        """The f32 scan over a bfloat16 vector plane, declared here alone."""
+
+        name = "bf16_toy"
+        aliases = ()
+
+        def store_specs(self, cfg):
+            specs = super().store_specs(cfg)
+            specs["vectors"] = (specs["vectors"][0], torch.bfloat16)
+            return specs
+
+        def build_store(self, cfg, store_h, *, generator=None):
+            store, cfg = super().build_store(cfg, store_h, generator=generator)
+            store["vectors"] = store["vectors"].to(torch.bfloat16)
+            return store, cfg
+
+    t0 = time.perf_counter()
+    eng = LiraEngine.build(ds.base, BuildConfig(tier="bf16_toy", **MAIN_BUILD), device=dev)
+    torch.cuda.synchronize()
+    log(f"last   bf16_toy build {time.perf_counter() - t0:.1f} s | capacity {eng.cfg.capacity} | "
+        f"vectors {eng.store['vectors'].dtype} "
+        f"{eng.store['vectors'].numel() * 2 / 2**30:.3f} GiB | {eng.cfg}")
+    if eng.cfg.tier != "bf16_toy" or eng.store["vectors"].dtype != torch.bfloat16:
+        raise AssertionError(f"bf16_toy: tier {eng.cfg.tier}, vectors {eng.store['vectors'].dtype}")
+    counters = {"l2_topk_qbuf": l2_mod, "dedup_topk": dd_mod, "pq_adc_topk_qbuf": adc_mod}
+    ids, launches = serve(eng, ds.queries, "bf16_toy", counters, len(ds.base), "last   bf16_toy")
+    require_launched("last   bf16_toy", launches, ("l2_topk_qbuf", "dedup_topk"))
+    if launches["pq_adc_topk_qbuf"]:
+        raise AssertionError("bf16_toy launched the ADC scan")
+    rec = recall_at_k(ids, gti, 100)
+    log(f"last   bf16_toy recall@100 {rec:.4f} against exact ground truth (phase 4's f32 "
+        f"{recall_f32:.4f})")
+    if rec < LAST_TOY_RECALL or recall_f32 - rec > LAST_TOY_GAP:
+        raise AssertionError(f"bf16_toy recall@100 {rec:.4f}: floor {LAST_TOY_RECALL}, within "
+                             f"{LAST_TOY_GAP} of f32's {recall_f32:.4f}")
+    # one batch's scan operands, and its stats
+    seen = []
+    scan_fn = kops.l2_topk_qbuf
+
+    def capture(*args, **kw):
+        seen.append(args)
+        return scan_fn(*args, **kw)
+
+    kops.l2_topk_qbuf = capture
+    try:
+        res = eng.search(ds.queries[:BATCH])
+    finally:
+        kops.l2_topk_qbuf = scan_fn
+    qp, qb, vec, cid, k = seen[0]
+    if res.stats.tier != "bf16_toy" or vec.dtype != torch.bfloat16 or qp.dtype != torch.bfloat16:
+        raise AssertionError(f"bf16_toy: stats tier {res.stats.tier}, scan over {vec.dtype}")
+    cuda_vs_ref(eng, ds.queries[:BATCH], "bf16_toy", "last   bf16_toy")
+    from repro_torch import testing as rt
+
+    err = compare_l2("l2_topk_qbuf bf16 plane", qp, qb, vec, cid, k)
+    ms = time_ms(lambda: l2_mod.l2_topk_qbuf(qp, qb, vec, cid, k), 10)
+    plain_ms = time_ms(lambda: kops.l2_topk_qbuf(qp, qb, vec, cid, k, impl="ref"), 3, 1)
+    bound = bound_entry(*l2_bound(qp, qb, vec, cid, k))
+    log(f"last   kernel l2_topk_qbuf on the bf16 plane (q_pad {list(qp.shape)}, qbuf "
+        f"{list(qb.shape)}, {int(rt.occupied(qp, qb).sum())} occupied slots): {ms:.3f} ms "
+        f"(plain {plain_ms:.3f} ms, bound {bound[0]:.3f} ms by {bound[1]}), max abs err "
+        f"{err:.3g}; launch {l2_mod.occupancy(vec, k)}; {smi}")
+    entry = kernel_entry(
+        "l2_topk_qbuf/bf16", "l2_topk_qbuf.cu", "src/repro/kernels/l2_topk.py:247",
+        launches["l2_topk_qbuf"], err, ms, plain_ms, bound,
+        {"q_pad": list(qp.shape), "qbuf": list(qb.shape), "cands": list(vec.shape), "k": k,
+         "dtype": "bfloat16", "occupied_slots": int(rt.occupied(qp, qb).sum()),
+         "recall_at_100": rec})
+    dense_q = torch.as_tensor(np.asarray(ds.queries[:LAST_DENSE_QUERIES]), device=dev)
+    return entry, (qp, qb, vec, cid, k, dense_q)
+
+
+def last_sweep(operands, smi, dev) -> dict:
+    """(b) The G sweep at lira-ann-q's store shape; every G that fits must
+    give the calculator's launch's bits."""
+    import torch
+
+    from repro_torch.core import retrieval as ret
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import l2_topk as l2_mod
+
+    qp, qb, vec, cid, k, dense_q = operands
+    b, cap, d = vec.shape
+    vec32 = vec.float()
+    found = {}
+    for dtype, ops_ in ((torch.float32, (qp.float(), qb, vec32, cid)),
+                        (torch.bfloat16, (qp, qb, vec, cid))):
+        g = autotune.autotune_l2_qbuf(cap, d, k, dtype=dtype, operands=ops_)
+        found[f"l2 {dtype}"] = rec = autotune.records()[-1]
+        log(f"last   sweep l2_topk_qbuf {str(dtype).replace('torch.', '')} at the serve path's "
+            f"dispatch (qbuf {list(qb.shape)}, store [{b}, {cap}, {d}], k {k}): each G "
+            + ", ".join(f"{gg} {1e3 * t:.3f} ms" for gg, t in rec["timings_s"].items())
+            + f"; the calculator's {1e3 * rec['default_s']:.3f} ms; refused {rec['refused']}; "
+            f"winner {g}, cached; bits equal to the calculator's {rec['same_bits']}")
+    q_row, q_cap = qp.shape[0] - 1, qb.shape[1]
+    g = autotune.autotune_pq_adc_qbuf(cap, 16, 256, 4 * k, b_loc=b, q_cap=q_cap, q_row=q_row,
+                                      device=dev)
+    found["adc"] = rec = autotune.records()[-1]
+    log(f"last   sweep pq_adc_topk_qbuf at m 16, ks 256, k {4 * k} on synthetic operands of "
+        f"the store's shape (qbuf [{b}, {q_cap}], codes [{b}, {cap}, 16] uint8, every slot a "
+        f"random row): each G " + ", ".join(f"{gg} {1e3 * t:.3f} ms"
+                                            for gg, t in rec["timings_s"].items())
+        + f"; the calculator's {1e3 * rec['default_s']:.3f} ms; refused {rec['refused']}; "
+        f"winner {g}, cached; bits equal to the calculator's {rec['same_bits']}")
+    # partition_topk's dense dispatch: 128 queries to every partition
+    for dtype, store in ((torch.float32, vec32), (torch.bfloat16, vec)):
+        dq, dbuf = ret.dense_dispatch(dense_q.to(dtype), b)
+        base = l2_mod.l2_topk_qbuf(dq, dbuf, store, cid, k)
+        rec = {"timings_s": {}, "refused": {}, "same_bits": {},
+               "default_s": time_ms(lambda: l2_mod.l2_topk_qbuf(dq, dbuf, store, cid, k), 5) / 1e3}
+        for gg in autotune.L2_GROUPS:
+            plan = l2_mod.group_plan(d, k, store.element_size(), gg, dev)
+            if not plan["fits"]:
+                rec["refused"][str(gg)] = f"{plan['smem_bytes']} B of shared memory"
+                continue
+            out = l2_mod.l2_topk_qbuf(dq, dbuf, store, cid, k, group=gg)
+            rec["same_bits"][str(gg)] = all(torch.equal(x, y) for x, y in zip(out, base))
+            rec["timings_s"][str(gg)] = time_ms(
+                lambda: l2_mod.l2_topk_qbuf(dq, dbuf, store, cid, k, group=gg), 5) / 1e3
+        found[f"dense {dtype}"] = rec
+        log(f"last   sweep l2_topk_qbuf {str(dtype).replace('torch.', '')} at the dense dispatch "
+            f"of {LAST_DENSE_QUERIES} queries (qbuf {list(dbuf.shape)}): each G "
+            + ", ".join(f"{gg} {1e3 * t:.3f} ms" for gg, t in rec["timings_s"].items())
+            + f"; the calculator's {1e3 * rec['default_s']:.3f} ms; refused {rec['refused']}; "
+            f"bits equal to the calculator's {rec['same_bits']}; {smi}")
+    del vec32
+    torch.cuda.empty_cache()
+    for what, rec in found.items():
+        if not rec["same_bits"] or not all(rec["same_bits"].values()):
+            raise AssertionError(f"sweep {what}: a group changed the bits: {rec['same_bits']}")
+    return found
+
+
+def last_dryrun(peaks: dict, smi) -> dict:
+    """(c) The dry run (meta tensors, one device) of phase 21's and phase
+    22's train steps against the card's peaks."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models.api import ShapeSpec
+
+    found = {}
+    lm_cfg, _ = get_config("stablelm-3b")
+    rec_cfg, _ = get_config("dlrm-rm2")
+    cells = (
+        ("stablelm-3b", ShapeSpec("train_4k", "train", {"seq_len": LM_TRAIN_SEQ,
+                                                        "global_batch": LM_TRAIN_BATCH}),
+         "lm_train_bound", 1e12 * lm_train_bound(lm_cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ)["tflop"]),
+        ("dlrm-rm2", ShapeSpec("train_batch", "rec_train", {"batch": 65_536}),
+         "3 x rec_flops", 3 * rec_flops(rec_cfg, 65_536)),
+    )
+    for arch, shape, bound_name, bound_flops in cells:
+        res = dryrun.run_cell(arch, shape, "one", verbose=False)
+        mem = res["memory"]
+        ratio = mem["per_device_total"] / 2**30 / peaks[arch]
+        found[arch] = dict(predicted_gib=mem["per_device_total"] / 2**30, measured_gib=peaks[arch],
+                           ratio=ratio, flops=res["ops"]["flops_per_device"],
+                           model_flops=res["model_flops_global"], bound_flops=bound_flops,
+                           trace_s=res["lower_s"], fits_80g=mem["fits_80g"])
+        log(f"last   dryrun {arch} {shape.kind} {dict(shape.dims)} over one device: predicted "
+            f"peak {mem['per_device_total'] / 2**30:.2f} GiB (parameters "
+            f"{mem['parameters'] / 2**30:.2f}, optimizer {mem['optimizer'] / 2**30:.2f}, inputs "
+            f"{mem['inputs'] / 2**30:.2f}, activations {mem['activation_peak'] / 2**30:.2f}) "
+            f"against the card's {peaks[arch]:.2f} GiB (max_memory_allocated in its phase): "
+            f"{ratio:.3f} x; fits {mem['device_memory_of']} ({mem['device_memory']} B): "
+            f"{mem['fits_80g']}; counted {res['ops']['flops_per_device']:.4e} FLOPs against "
+            f"model_flops {res['model_flops_global']:.4e} and {bound_name} {bound_flops:.4e}; "
+            f"bytes {res['ops']['bytes_per_device']:.4e}; traced in {res['lower_s']:.1f} s; "
+            f"largest at the peak {res['top_buffers'][:3]}; {smi}")
+        lo, hi = LAST_DRYRUN_BAND
+        if not lo <= ratio <= hi:
+            raise AssertionError(f"dryrun {arch}: predicted / measured peak {ratio:.3f} outside "
+                                 f"{LAST_DRYRUN_BAND}")
+    return found
+
+
+def last_modules_phase(smi, ds, gti, recall_f32: float, peaks: dict, dev="cuda"):
+    """25. The last modules: (a) the tier registry's extension point, (b)
+    the group autotuner, (c) the dry run against the card. Returns the
+    kernels-line entry of l2_topk_qbuf on the bf16 plane and what each part
+    found."""
+    import torch
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    entry, operands = last_toy_tier(ds, gti, recall_f32, smi, dev)
+    log(f"last   (a) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    found = {"sweep": last_sweep(operands, smi, dev)}
+    log(f"last   (b) {time.perf_counter() - t0:.1f} s")
+    del operands
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    found["dryrun"] = last_dryrun(peaks, smi)
+    log(f"last   (c) {time.perf_counter() - t0:.1f} s")
+    log(f"last   phase {time.perf_counter() - t_phase:.1f} s; {smi}")
+    return entry, found
 
 
 # ---------------------------------------------------------------- phases
@@ -4242,10 +4493,14 @@ def main(n_base: int = N_BASE, n_queries: int = N_QUERIES) -> int:
     clustered = cluster_phase(ds, counters, gti, recall, smi)
     examples_phase()
     lm_phase(smi)
-    lm_train_phase(smi)
-    recsys_phase(smi)
+    lm_trained = lm_train_phase(smi)
+    rec_found = recsys_phase(smi)
     graph_phase(smi)
     mesh_models_phase(smi)
+    entry, _ = last_modules_phase(smi, ds, gti, recall["f32"], {
+        "stablelm-3b": lm_trained["dense"]["peak_gib"],
+        "dlrm-rm2": rec_found["dlrm-rm2"]["train_batch"]["peak_gib"]})
+    kernels.append(entry)
     for kern in kernels:
         for path, found in (("mesh", meshed), ("cluster", clustered)):
             if kern["name"] in found:

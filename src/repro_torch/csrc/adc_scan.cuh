@@ -69,14 +69,16 @@ inline size_t smem_bytes(int G, int m, int ks, int k) {
 }
 
 // The group size with the most rows resident on an SM for `kernel` (ties to
-// the larger group), from the occupancy calculator.
+// the larger group), from the occupancy calculator. A nonzero `only` (1 to
+// kMaxGroup) considers that G alone: its plan, or G = 0 when it does not fit.
 template <typename Kernel>
-inline Plan plan(Kernel* kernel, int m, int ks, int k) {
+inline Plan plan(Kernel* kernel, int m, int ks, int k, int only = 0) {
   Plan best;
-  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem) !=
-      cudaSuccess)
+  if (only < 0 || only > kMaxGroup ||
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem) !=
+          cudaSuccess)
     return best;
-  for (int G = 1; G <= kMaxGroup; ++G) {
+  for (int G = only ? only : 1; G <= (only ? only : kMaxGroup); ++G) {
     const size_t smem = smem_bytes(G, m, ks, k);
     int per_sm = 0;
     if (smem > kMaxSmem ||

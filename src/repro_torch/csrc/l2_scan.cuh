@@ -120,9 +120,10 @@ inline size_t smem_bytes(int d, int k) { return Layout<G>(d, k).total; }
 
 // The group size with the most rows resident on an SM, from the occupancy
 // calculator for the two instantiations of the kernel that is launched; on a
-// tie the larger G when `larger` is set, else the smaller.
+// tie the larger G when `larger` is set, else the smaller. A nonzero `only`
+// (16 or 32) considers that G alone: its plan, or G = 0 when it does not fit.
 template <typename K16, typename K32>
-inline Plan plan(K16* k16, K32* k32, int d, int k, bool larger) {
+inline Plan plan(K16* k16, K32* k32, int d, int k, bool larger, int only = 0) {
   Plan best;
   auto consider = [&](auto* kernel, int G, size_t smem) {
     int per_sm = 0;
@@ -136,8 +137,8 @@ inline Plan plan(K16* k16, K32* k32, int d, int k, bool larger) {
     const long long rows = (long long)G * per_sm, had = (long long)best.G * best.per_sm;
     if (rows > had || (rows == had && larger)) best = {G, smem, per_sm};
   };
-  consider(k16, 16, smem_bytes<16>(d, k));
-  consider(k32, 32, smem_bytes<32>(d, k));
+  if (only == 0 || only == 16) consider(k16, 16, smem_bytes<16>(d, k));
+  if (only == 0 || only == 32) consider(k32, 32, smem_bytes<32>(d, k));
   return best;
 }
 

@@ -43,8 +43,9 @@
 //    group's last range merges the group's partial lists under the same
 //    (dist, position) key (topk_merge.cuh's offer_list) and writes the ids.
 // G is 16 or 32, whichever the occupancy calculator lets an SM hold the most
-// rows of (the smaller on a tie). The launch is refused when not even a group
-// of 16 fits a block's shared memory.
+// rows of (the smaller on a tie), unless the caller names one (the autotuner,
+// kernels/autotune.py). The launch is refused when not even a group of 16
+// fits a block's shared memory, or when the G named does not.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -242,13 +243,15 @@ l2_topk_qbuf_kernel(const T* __restrict__ q_pad, int n_rows, const int* __restri
   }
 }
 
+// G = 0: the occupancy calculator's choice; 16 or 32: that group alone.
 template <typename T>
-Plan plan_for(int d, int k) {
-  return plan(l2_topk_qbuf_kernel<16, T>, l2_topk_qbuf_kernel<32, T>, d, k, false);
+Plan plan_for(int d, int k, int G) {
+  if (G != 0 && G != 16 && G != 32) return Plan{};
+  return plan(l2_topk_qbuf_kernel<16, T>, l2_topk_qbuf_kernel<32, T>, d, k, false, G);
 }
 
-Plan plan_for(int d, int k, int itemsize) {
-  return itemsize == 2 ? plan_for<__nv_bfloat16>(d, k) : plan_for<float>(d, k);
+Plan plan_for(int d, int k, int itemsize, int G) {
+  return itemsize == 2 ? plan_for<__nv_bfloat16>(d, k, G) : plan_for<float>(d, k, G);
 }
 
 // The scan's blocks: as many as the card holds at once.
@@ -281,8 +284,9 @@ cudaError_t plan_items(const Plan& p, int blocks, const void* qbuf, int n_rows, 
 
 template <typename T>
 int launch(const void* q_pad, int n_rows, const void* qbuf, int B, int S, const void* cands,
-           const void* ids, int C, int d, int k, void* ws, void* od, void* oi, void* stream) {
-  const Plan p = plan_for<T>(d, k);
+           const void* ids, int C, int d, int k, int G, void* ws, void* od, void* oi,
+           void* stream) {
+  const Plan p = plan_for<T>(d, k, G);
   if (p.G == 0) return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return 0;
   int blocks = 0;
@@ -311,26 +315,37 @@ extern "C" {
 // memory a scan block needs (a group of 16's when none fits; above 232448
 // the launch is refused), and blocks resident on an SM (the scan kernel
 // launches that many for every SM).
-int l2_topk_qbuf_group(int d, int k, int itemsize) { return plan_for(d, k, itemsize).G; }
+int l2_topk_qbuf_group(int d, int k, int itemsize) { return plan_for(d, k, itemsize, 0).G; }
 
 long long l2_topk_qbuf_smem_bytes(int d, int k, int itemsize) {
-  return (long long)(plan_for(d, k, itemsize).G == 32 ? smem_bytes<32>(d, k)
-                                                      : smem_bytes<16>(d, k));
+  return (long long)(plan_for(d, k, itemsize, 0).G == 32 ? smem_bytes<32>(d, k)
+                                                         : smem_bytes<16>(d, k));
 }
 
 int l2_topk_qbuf_blocks_per_sm(int d, int k, int itemsize) {
-  return plan_for(d, k, itemsize).per_sm;
+  return plan_for(d, k, itemsize, 0).per_sm;
 }
 
-// The workspace of a launch over B buckets of S slots on the current
-// device: out[0] its bytes, out[1] the byte offset of its work items
-// (kItemInts int32 each: bucket, first occupied slot, rows, c_lo, c_hi,
-// ranges of the group, first partial list or -1, range), out[2] the items it
+// The launch with the group G (16 or 32) named: out[0] G, or 0 when that
+// group does not fit a block (or is neither 16 nor 32), out[1] the shared
+// memory a block of G needs, out[2] blocks resident on an SM.
+void l2_topk_qbuf_plan_group(int d, int k, int itemsize, int G, long long* out) {
+  const Plan p = plan_for(d, k, itemsize, G);
+  out[0] = p.G;
+  out[1] = (long long)(G == 32 ? smem_bytes<32>(d, k) : smem_bytes<16>(d, k));
+  out[2] = p.per_sm;
+}
+
+// The workspace of a launch over B buckets of S slots with the group G (0:
+// the calculator's) on the current device: out[0] its bytes, out[1] the
+// byte offset of its work items (kItemInts int32 each: bucket, first
+// occupied slot, rows, c_lo, c_hi, ranges of the group, first partial list
+// or -1, range), out[2] the items it
 // has room for (those above half the target from the front, the rest from
 // the back), out[3] the partial lists its pool holds. Zero bytes when no
 // group fits a block.
-void l2_topk_qbuf_workspace(int B, int S, int d, int k, int itemsize, long long* out) {
-  const Plan p = plan_for(d, k, itemsize);
+void l2_topk_qbuf_workspace(int B, int S, int d, int k, int itemsize, int G, long long* out) {
+  const Plan p = plan_for(d, k, itemsize, G);
   int blocks = 0;
   out[0] = out[1] = out[2] = out[3] = 0;
   if (p.G == 0 || scan_blocks(p, &blocks) != cudaSuccess) return;
@@ -347,7 +362,7 @@ void l2_topk_qbuf_workspace(int B, int S, int d, int k, int itemsize, long long*
 // empty slots' rows of od / oi. Returns a cudaError_t.
 int l2_topk_qbuf_plan(const void* qbuf, int n_rows, int B, int S, const void* ids, int C, int d,
                       int k, int itemsize, void* ws, void* od, void* oi, void* stream) {
-  const Plan p = plan_for(d, k, itemsize);
+  const Plan p = plan_for(d, k, itemsize, 0);
   if (p.G == 0) return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return 0;
   int blocks = 0;
@@ -358,18 +373,19 @@ int l2_topk_qbuf_plan(const void* qbuf, int n_rows, int B, int S, const void* id
 }
 
 // q_pad [n_rows, d], qbuf [B, S] int32, cands [B, C, d], ids [B, C] int32
-// -> od [B, S, k] f32, oi [B, S, k] int32; ws holds the workspace's bytes
-// (l2_topk_qbuf_workspace). Returns a cudaError_t.
+// -> od [B, S, k] f32, oi [B, S, k] int32; G the group (0: the calculator's);
+// ws holds the workspace's bytes (l2_topk_qbuf_workspace, same G). Returns a
+// cudaError_t.
 int l2_topk_qbuf_f32(const void* q_pad, int n_rows, const void* qbuf, int B, int S,
-                     const void* cands, const void* ids, int C, int d, int k, void* ws, void* od,
-                     void* oi, void* stream) {
-  return launch<float>(q_pad, n_rows, qbuf, B, S, cands, ids, C, d, k, ws, od, oi, stream);
+                     const void* cands, const void* ids, int C, int d, int k, int G, void* ws,
+                     void* od, void* oi, void* stream) {
+  return launch<float>(q_pad, n_rows, qbuf, B, S, cands, ids, C, d, k, G, ws, od, oi, stream);
 }
 
 int l2_topk_qbuf_bf16(const void* q_pad, int n_rows, const void* qbuf, int B, int S,
-                      const void* cands, const void* ids, int C, int d, int k, void* ws, void* od,
-                      void* oi, void* stream) {
-  return launch<__nv_bfloat16>(q_pad, n_rows, qbuf, B, S, cands, ids, C, d, k, ws, od, oi,
+                      const void* cands, const void* ids, int C, int d, int k, int G, void* ws,
+                      void* od, void* oi, void* stream) {
+  return launch<__nv_bfloat16>(q_pad, n_rows, qbuf, B, S, cands, ids, C, d, k, G, ws, od, oi,
                                stream);
 }
 

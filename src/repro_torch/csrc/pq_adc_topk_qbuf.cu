@@ -32,8 +32,10 @@
 // against the k-th key, sort and merge in bulks of 256) in place of one
 // insert at a time (topk_select.cuh). qbuf == n_rows - 1 is the empty slot:
 // its warp writes inf / -1 and, when the whole group is empty, the block
-// leaves without reading anything else. The launch is refused when not even
-// one slot fits a block's shared memory.
+// leaves without reading anything else. G is the occupancy calculator's
+// choice unless the caller names one (the autotuner, kernels/autotune.py).
+// The launch is refused when not even one slot fits a block's shared memory,
+// or when the G named does not.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -64,23 +66,26 @@ pq_adc_topk_qbuf_kernel(const float* __restrict__ lut_pad, int n_rows, int m, in
                       k, od + slot0 * k, oi + slot0 * k);
 }
 
-// The launch plan of the kernel that codes of this width take.
+// The launch plan of the kernel that codes of this width take; G = 0 the
+// occupancy calculator's choice, else that group alone.
 template <typename CT>
-Plan plan_for(int nv, int m, int ks, int k) {
-  return nv ? plan(pq_adc_topk_qbuf_kernel<CT, 1>, m, ks, k) : plan(pq_adc_topk_qbuf_kernel<CT, 0>, m, ks, k);
+Plan plan_for(int nv, int m, int ks, int k, int G) {
+  return nv ? plan(pq_adc_topk_qbuf_kernel<CT, 1>, m, ks, k, G)
+            : plan(pq_adc_topk_qbuf_kernel<CT, 0>, m, ks, k, G);
 }
 
-Plan plan_for(int code_size, int m, int ks, int k) {
+Plan plan_for(int code_size, int m, int ks, int k, int G) {
   const int nv = code_vectors(m, code_size);
-  return code_size == 2 ? plan_for<uint16_t>(nv, m, ks, k) : plan_for<uint8_t>(nv, m, ks, k);
+  return code_size == 2 ? plan_for<uint16_t>(nv, m, ks, k, G)
+                         : plan_for<uint8_t>(nv, m, ks, k, G);
 }
 
 template <typename CT>
 int launch(const void* lut_pad, int n_rows, int m, int ks, const void* qbuf, int B, int S,
            const void* codes, const void* ids, const void* cand_off, const void* q_off,
-           int N, int k, void* od, void* oi, void* stream) {
+           int N, int k, int G, void* od, void* oi, void* stream) {
   const int nv = code_vectors(codes, m, sizeof(CT));
-  const Plan p = plan_for<CT>(nv, m, ks, k);
+  const Plan p = plan_for<CT>(nv, m, ks, k, G);
   if (p.G == 0) return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return 0;
   const long long blocks = (long long)B * ((S + p.G - 1) / p.G);
@@ -103,35 +108,46 @@ extern "C" {
 // the shared memory a block needs (one slot's when none fits; above 232448
 // the launch is refused), and blocks resident on an SM.
 int pq_adc_topk_qbuf_group(int m, int ks, int k, int code_size) {
-  return plan_for(code_size, m, ks, k).G;
+  return plan_for(code_size, m, ks, k, 0).G;
 }
 
 long long pq_adc_topk_qbuf_smem_bytes(int m, int ks, int k, int code_size) {
-  const int G = plan_for(code_size, m, ks, k).G;
+  const int G = plan_for(code_size, m, ks, k, 0).G;
   return (long long)smem_bytes(G > 0 ? G : 1, m, ks, k);
 }
 
 int pq_adc_topk_qbuf_blocks_per_sm(int m, int ks, int k, int code_size) {
-  return plan_for(code_size, m, ks, k).per_sm;
+  return plan_for(code_size, m, ks, k, 0).per_sm;
+}
+
+// The launch with G slots a block named (1 to 8): out[0] G, or 0 when that
+// group does not fit a block, out[1] the shared memory a block of G needs,
+// out[2] blocks resident on an SM.
+void pq_adc_topk_qbuf_plan_group(int m, int ks, int k, int code_size, int G, long long* out) {
+  const Plan p = plan_for(code_size, m, ks, k, G);
+  out[0] = p.G;
+  out[1] = (long long)smem_bytes(G > 0 ? G : 1, m, ks, k);
+  out[2] = p.per_sm;
 }
 
 // lut_pad [n_rows, m, ks] f32, qbuf [B, S] int32, codes [B, N, m] uint8 or
 // uint16, ids [B, N] int32, cand_off [B, N] f32 or NULL, q_off [B, S] f32 or
-// NULL -> od [B, S, k] f32, oi [B, S, k] int32. Returns a cudaError_t.
+// NULL, G the slots a block (0: the calculator's) -> od [B, S, k] f32,
+// oi [B, S, k] int32. Returns a cudaError_t.
 int pq_adc_topk_qbuf_u8(const void* lut_pad, int n_rows, int m, int ks, const void* qbuf,
                         int B, int S, const void* codes, const void* ids,
-                        const void* cand_off, const void* q_off, int N, int k, void* od,
+                        const void* cand_off, const void* q_off, int N, int k, int G, void* od,
                         void* oi, void* stream) {
   return launch<uint8_t>(lut_pad, n_rows, m, ks, qbuf, B, S, codes, ids, cand_off, q_off, N,
-                         k, od, oi, stream);
+                         k, G, od, oi, stream);
 }
 
 int pq_adc_topk_qbuf_u16(const void* lut_pad, int n_rows, int m, int ks, const void* qbuf,
                          int B, int S, const void* codes, const void* ids,
-                         const void* cand_off, const void* q_off, int N, int k, void* od,
+                         const void* cand_off, const void* q_off, int N, int k, int G, void* od,
                          void* oi, void* stream) {
   return launch<uint16_t>(lut_pad, n_rows, m, ks, qbuf, B, S, codes, ids, cand_off, q_off, N,
-                          k, od, oi, stream);
+                          k, G, od, oi, stream);
 }
 
 }  // extern "C"

@@ -28,15 +28,19 @@ def _lib():
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         for fn in _DTYPES.values():
             f = getattr(lib, fn)
-            f.argtypes = [ptr, i32, ptr, i32, i32, ptr, ptr, i32, i32, i32, ptr, ptr, ptr, ptr]
+            f.argtypes = [ptr, i32, ptr, i32, i32, ptr, ptr, i32, i32, i32, i32, ptr, ptr, ptr,
+                          ptr]
             f.restype = i32
         for fn in ("l2_topk_qbuf_group", "l2_topk_qbuf_smem_bytes", "l2_topk_qbuf_blocks_per_sm"):
             getattr(lib, fn).argtypes = [i32, i32, i32]
         lib.l2_topk_qbuf_group.restype = i32
         lib.l2_topk_qbuf_blocks_per_sm.restype = i32
         lib.l2_topk_qbuf_smem_bytes.restype = i64
-        lib.l2_topk_qbuf_workspace.argtypes = [i32, i32, i32, i32, i32, ctypes.POINTER(i64)]
+        lib.l2_topk_qbuf_workspace.argtypes = [i32, i32, i32, i32, i32, i32,
+                                               ctypes.POINTER(i64)]
         lib.l2_topk_qbuf_workspace.restype = None
+        lib.l2_topk_qbuf_plan_group.argtypes = [i32, i32, i32, i32, ctypes.POINTER(i64)]
+        lib.l2_topk_qbuf_plan_group.restype = None
         lib.l2_topk_qbuf_plan.argtypes = [ptr, i32, i32, i32, ptr, i32, i32, i32, i32, ptr, ptr,
                                           ptr, ptr]
         lib.l2_topk_qbuf_plan.restype = i32
@@ -57,11 +61,23 @@ def occupancy(cands: torch.Tensor, k: int) -> dict:
                 "smem_bytes": lib.l2_topk_qbuf_smem_bytes(d, k, size)}
 
 
-def _workspace(lib, b: int, s: int, d: int, k: int, size: int, device):
+def group_plan(d: int, k: int, itemsize: int, group: int, device) -> dict:
+    """The launch with ``group`` (16 or 32) dispatch slots a block at these
+    widths on ``device``: ``fits`` (False when a block of that group exceeds
+    the shared memory one can opt into), its shared memory a block and
+    blocks resident on an SM."""
+    out = (ctypes.c_longlong * 3)()
+    with torch.cuda.device(device):
+        _lib().l2_topk_qbuf_plan_group(d, k, itemsize, group, out)
+    return {"fits": out[0] == group, "smem_bytes": out[1], "blocks_per_sm": out[2]}
+
+
+def _workspace(lib, b: int, s: int, d: int, k: int, size: int, group: int, device):
     """(uint8 workspace, byte offset of its items, items it holds, partial
-    lists its pool holds) for one launch."""
+    lists its pool holds) for one launch with ``group`` (0: the occupancy
+    calculator's)."""
     out = (ctypes.c_longlong * 4)()
-    lib.l2_topk_qbuf_workspace(b, s, d, k, size, out)
+    lib.l2_topk_qbuf_workspace(b, s, d, k, size, group, out)
     return torch.empty(max(out[0], 16), dtype=torch.uint8, device=device), out[1], out[2], out[3]
 
 
@@ -88,11 +104,11 @@ def _check(q_pad, qbuf, cands, cand_ids, k):
     return q_pad.contiguous(), qbuf.contiguous(), cands.contiguous(), cand_ids.contiguous()
 
 
-def _raise(lib, err, s, d, k, cands):
+def _raise(lib, err, s, d, k, cands, group):
     # e.g. a block that needs more shared memory than it can opt into
-    _build.check(err, f"l2_topk_qbuf (S={s}, d={d}, k={k}: "
+    _build.check(err, f"l2_topk_qbuf (S={s}, d={d}, k={k}, group {group or 'chosen'}: "
                       f"{lib.l2_topk_qbuf_smem_bytes(d, k, cands.element_size())} B of "
-                      f"shared memory per block)")
+                      f"shared memory per block at the chosen group)")
 
 
 def plan(q_pad: torch.Tensor, qbuf: torch.Tensor, cands: torch.Tensor,
@@ -103,11 +119,11 @@ def plan(q_pad: torch.Tensor, qbuf: torch.Tensor, cands: torch.Tensor,
     rows, c_lo, c_hi, ranges of the group, first partial list (-1 unsplit),
     range; the total work (occupied slots x valid end, summed over buckets);
     the partial lists the pool holds and those the splits use; the split
-    items; and the workspace's bytes."""
+    items; and the workspace's bytes, at the occupancy calculator's group."""
     q_pad, qbuf, cands, cand_ids = _check(q_pad, qbuf, cands, cand_ids, k)
     (b, c, d), s, lib = cands.shape, qbuf.shape[1], _lib()
     with torch.cuda.device(cands.device):
-        ws, at, cap, pool = _workspace(lib, b, s, d, k, cands.element_size(), cands.device)
+        ws, at, cap, pool = _workspace(lib, b, s, d, k, cands.element_size(), 0, cands.device)
         od = torch.empty((b, s, k), dtype=torch.float32, device=cands.device)
         oi = torch.empty((b, s, k), dtype=torch.int32, device=cands.device)
         err = lib.l2_topk_qbuf_plan(qbuf.data_ptr(), q_pad.shape[0], b, s, cand_ids.data_ptr(),
@@ -115,7 +131,7 @@ def plan(q_pad: torch.Tensor, qbuf: torch.Tensor, cands: torch.Tensor,
                                     od.data_ptr(), oi.data_ptr(),
                                     torch.cuda.current_stream().cuda_stream)
     if err:
-        _raise(lib, err, s, d, k, cands)
+        _raise(lib, err, s, d, k, cands, 0)
     head = ws[:24].cpu()
     front, back = (int(v) for v in head[:8].view(torch.int32))
     items = ws[at:at + cap * 32].view(torch.int32).view(cap, 8).cpu().long()
@@ -127,7 +143,7 @@ def plan(q_pad: torch.Tensor, qbuf: torch.Tensor, cands: torch.Tensor,
 
 
 def l2_topk_qbuf(q_pad: torch.Tensor, qbuf: torch.Tensor, cands: torch.Tensor,
-                 cand_ids: torch.Tensor, k: int):
+                 cand_ids: torch.Tensor, k: int, *, group: int = 0):
     """Top-k scan of every bucket's dispatched queries.
 
     q_pad    [R, d]     queries in the store dtype; row R-1 is the sentinel
@@ -139,6 +155,10 @@ def l2_topk_qbuf(q_pad: torch.Tensor, qbuf: torch.Tensor, cands: torch.Tensor,
     where fewer than k valid candidates exist. On the card, empty slots come
     back as inf / -1 without being scanned; the plain version scans them
     against the sentinel row. Callers drop those slots either way.
+
+    ``group``: dispatch slots a block, 16 or 32, or 0 for the occupancy
+    calculator's choice; a group that does not fit a block is refused. The
+    result does not depend on it.
     """
     global launches
     if cands.device.type == "cpu":
@@ -148,13 +168,13 @@ def l2_topk_qbuf(q_pad: torch.Tensor, qbuf: torch.Tensor, cands: torch.Tensor,
     od = torch.empty((b, s, k), dtype=torch.float32, device=cands.device)
     oi = torch.empty((b, s, k), dtype=torch.int32, device=cands.device)
     with torch.cuda.device(cands.device):
-        ws = _workspace(lib, b, s, d, k, cands.element_size(), cands.device)[0]
+        ws = _workspace(lib, b, s, d, k, cands.element_size(), group, cands.device)[0]
         err = getattr(lib, _DTYPES[cands.dtype])(
             q_pad.data_ptr(), q_pad.shape[0], qbuf.data_ptr(), b, s,
-            cands.data_ptr(), cand_ids.data_ptr(), c, d, k, ws.data_ptr(),
+            cands.data_ptr(), cand_ids.data_ptr(), c, d, k, group, ws.data_ptr(),
             od.data_ptr(), oi.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if err:
-        _raise(lib, err, s, d, k, cands)
+        _raise(lib, err, s, d, k, cands, group)
     launches += 1
     return od, oi
 

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import autotune as _autotune
 from repro_torch.kernels import dedup_topk as _dd
 from repro_torch.kernels import kmeans_assign as _km
 from repro_torch.kernels import l2_topk as _l2
@@ -58,13 +59,17 @@ def l2_topk_batched(q, cands, cand_ids, k: int, *, impl: str | None = None):
 
 def l2_topk_qbuf(q_pad, qbuf, cands, cand_ids, k: int, *, impl: str | None = None):
     """Dispatch-buffer top-k scan: compact ``q_pad`` [R, d] + ``qbuf`` [B, S]
-    indices vs [B, C, d] candidate sets → ([B, S, k], [B, S, k])."""
+    indices vs [B, C, d] candidate sets → ([B, S, k], [B, S, k]). The
+    kernel's group is the autotune cache's for the store shape (C / d / k /
+    itemsize); a shape no sweep has seen runs the occupancy calculator's."""
     impl = resolve_impl(impl, cands.device)
     qbuf = qbuf.to(torch.int32)
     cand_ids = cand_ids.to(torch.int32)
     if impl == "ref":
         return _ref.l2_topk_qbuf_ref(q_pad, qbuf, cands, cand_ids, k)
-    return _l2.l2_topk_qbuf(q_pad, qbuf, cands, cand_ids, k)
+    group = _autotune.lookup(_autotune.l2_key(cands.shape[1], cands.shape[2], k,
+                                              cands.element_size()))
+    return _l2.l2_topk_qbuf(q_pad, qbuf, cands, cand_ids, k, group=group or 0)
 
 
 def pq_adc_topk_qbuf(lut_pad, qbuf, codes, cand_ids, k: int, *, cand_off=None, q_off=None,
@@ -72,15 +77,19 @@ def pq_adc_topk_qbuf(lut_pad, qbuf, codes, cand_ids, k: int, *, cand_off=None, q
     """Dispatch-buffer ADC shortlist: compact ``lut_pad`` [R, m, ks] + ``qbuf``
     [B, S] indices vs [B, N, m] code sets → ([B, S, k], [B, S, k]), with the
     residual offsets ``cand_off`` [B, N] and ``q_off`` [B, S] (None adds
-    zero). Codes keep their store dtype (uint8 / uint16); any N is taken."""
+    zero). Codes keep their store dtype (uint8 / uint16); any N is taken.
+    The kernel's group is the autotune cache's for the store shape (N / m /
+    ks / k / the codes' itemsize), as in ``l2_topk_qbuf``."""
     impl = resolve_impl(impl, codes.device)
     qbuf = qbuf.to(torch.int32)
     cand_ids = cand_ids.to(torch.int32)
     if impl == "ref":
         return _ref.pq_adc_topk_qbuf_ref(lut_pad, qbuf, codes, cand_ids, k,
                                          cand_off=cand_off, q_off=q_off)
+    group = _autotune.lookup(_autotune.pq_adc_key(codes.shape[1], codes.shape[2],
+                                                  lut_pad.shape[2], k, codes.element_size()))
     return _adc.pq_adc_topk_qbuf(lut_pad, qbuf, codes, cand_ids, k,
-                                 cand_off=cand_off, q_off=q_off)
+                                 cand_off=cand_off, q_off=q_off, group=group or 0)
 
 
 def pq_adc(lut, codes, *, impl: str | None = None):

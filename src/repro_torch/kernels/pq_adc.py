@@ -31,7 +31,7 @@ def _lib():
         for fn in _CODES.values():
             f = getattr(lib, fn)
             f.argtypes = [ptr, i32, i32, i32, ptr, i32, i32, ptr, ptr, ptr, ptr, i32, i32,
-                          ptr, ptr, ptr]
+                          i32, ptr, ptr, ptr]
             f.restype = i32
         for fn in ("pq_adc_topk_qbuf_group", "pq_adc_topk_qbuf_smem_bytes",
                    "pq_adc_topk_qbuf_blocks_per_sm"):
@@ -39,6 +39,9 @@ def _lib():
         lib.pq_adc_topk_qbuf_group.restype = i32
         lib.pq_adc_topk_qbuf_blocks_per_sm.restype = i32
         lib.pq_adc_topk_qbuf_smem_bytes.restype = ctypes.c_longlong
+        lib.pq_adc_topk_qbuf_plan_group.argtypes = [i32, i32, i32, i32, i32,
+                                                    ctypes.POINTER(ctypes.c_longlong)]
+        lib.pq_adc_topk_qbuf_plan_group.restype = None
         lib._typed = True
     return lib
 
@@ -54,8 +57,20 @@ def occupancy(lut_pad: torch.Tensor, codes: torch.Tensor, k: int) -> dict:
                 "smem_bytes": lib.pq_adc_topk_qbuf_smem_bytes(m, ks, k, size)}
 
 
+def group_plan(m: int, ks: int, k: int, code_size: int, group: int, device) -> dict:
+    """The launch with ``group`` (1 to 8) dispatch slots a block at these
+    widths on ``device``: ``fits`` (False when a block of that group exceeds
+    the shared memory one can opt into), its shared memory a block and
+    blocks resident on an SM."""
+    out = (ctypes.c_longlong * 3)()
+    with torch.cuda.device(device):
+        _lib().pq_adc_topk_qbuf_plan_group(m, ks, k, code_size, group, out)
+    return {"fits": out[0] == group, "smem_bytes": out[1], "blocks_per_sm": out[2]}
+
+
 def pq_adc_topk_qbuf(lut_pad: torch.Tensor, qbuf: torch.Tensor, codes: torch.Tensor,
-                     cand_ids: torch.Tensor, k: int, *, cand_off=None, q_off=None):
+                     cand_ids: torch.Tensor, k: int, *, cand_off=None, q_off=None,
+                     group: int = 0):
     """Top-k ADC scan of every bucket's dispatched queries.
 
     lut_pad  [R, m, ks] f32  per-query LUTs; row R-1 is the empty slot's
@@ -69,6 +84,10 @@ def pq_adc_topk_qbuf(lut_pad: torch.Tensor, qbuf: torch.Tensor, codes: torch.Ten
     where fewer than k valid candidates exist. On the card, empty slots come
     back as inf / -1 without being scanned; the plain version scans them
     against the LUT row R-1. Callers drop those slots either way.
+
+    ``group``: dispatch slots a block, 1 to 8, or 0 for the occupancy
+    calculator's choice; a group that does not fit a block is refused. The
+    result does not depend on it.
     """
     global launches
     if codes.device.type == "cpu":
@@ -116,10 +135,11 @@ def pq_adc_topk_qbuf(lut_pad: torch.Tensor, qbuf: torch.Tensor, codes: torch.Ten
             lut_pad.data_ptr(), lut_pad.shape[0], m, ks, qbuf.data_ptr(), b, s,
             codes.data_ptr(), cand_ids.data_ptr(),
             None if cand_off is None else cand_off.data_ptr(),
-            None if q_off is None else q_off.data_ptr(), n, k,
+            None if q_off is None else q_off.data_ptr(), n, k, group,
             od.data_ptr(), oi.data_ptr(), stream)
     if err:  # e.g. one slot's LUT and list exceed the shared memory of a block
-        _build.check(err, f"pq_adc_topk_qbuf (m={m}, ks={ks}, k={k}: "
+        _build.check(err, f"pq_adc_topk_qbuf (m={m}, ks={ks}, k={k}, "
+                          f"group {group or 'chosen'}: "
                           f"{lib.pq_adc_topk_qbuf_smem_bytes(m, ks, k, codes.element_size())} "
                           f"B of shared memory per block)")
     launches += 1

@@ -101,6 +101,19 @@ def _adc_sum(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     return d
 
 
+def _adc_sum_rows(lut_pad: torch.Tensor, rows: torch.Tensor,
+                  codes: torch.Tensor) -> torch.Tensor:
+    """``_adc_sum`` of the LUTs ``lut_pad[rows]`` ([R, m, ks] rows through
+    [G, Q] indices) × [G, N, m] codes → [G, Q, N] f32, read from the compact
+    plane: no [G, Q, m, ks] copy is made."""
+    rows = rows.long()[:, :, None]
+    d = None
+    for j in range(codes.shape[2]):
+        term = lut_pad[:, j].float()[rows, codes[:, None, :, j].long()]
+        d = term if d is None else d + term
+    return d
+
+
 def _adc_topk(d: torch.Tensor, cand_ids: torch.Tensor, k: int):
     """Mask ids < 0 and take the k smallest of [G, Q, N] distances."""
     ids = cand_ids.to(torch.int32)
@@ -143,13 +156,14 @@ def pq_adc_topk_batched_ref(lut: torch.Tensor, codes: torch.Tensor, cand_ids: to
 def pq_adc_topk_qbuf_ref(lut_pad: torch.Tensor, qbuf: torch.Tensor, codes: torch.Tensor,
                          cand_ids: torch.Tensor, k: int, cand_off=None, q_off=None):
     """Oracle for the dispatch-buffer ADC scan: ``lut_pad`` [R, m, ks] rows
-    gathered through ``qbuf`` [B, S] against ``codes`` [B, N, m]. Buckets go
-    in chunks, and a bucket too big for one chunk in chunks of slots, so the
-    ``[B, S, m, ks]`` gather and the ``[B, S, N]`` distances are never whole
-    (the flat form over 1M codes is one bucket of 1,000 slots)."""
+    read through ``qbuf`` [B, S] against ``codes`` [B, N, m], never copied a
+    slot (no [B, S, m, ks] tensor, as in the kernel). Buckets go in chunks,
+    and a bucket too big for one chunk in chunks of slots, so the
+    ``[B, S, N]`` distances are never whole (the flat form over 1M codes is
+    one bucket of 1,000 slots)."""
     b, s = qbuf.shape
     n = codes.shape[1]
-    per_slot = max(1, n, lut_pad[0].numel())
+    per_slot = max(1, n)
     s_step = max(1, min(s, _ADC_CHUNK // per_slot))   # slots, when one bucket is too big
     b_step = max(1, _ADC_CHUNK // (s * per_slot)) if s else 1
     out_d = torch.empty((b, s, k), dtype=torch.float32, device=lut_pad.device)
@@ -158,7 +172,7 @@ def pq_adc_topk_qbuf_ref(lut_pad: torch.Tensor, qbuf: torch.Tensor, codes: torch
         bs = slice(b0, b0 + b_step)
         for s0 in range(0, s, s_step):
             ss = slice(s0, s0 + s_step)
-            d = _adc_sum(lut_pad[qbuf[bs, ss].long()], codes[bs])
+            d = _adc_sum_rows(lut_pad, qbuf[bs, ss], codes[bs])
             if q_off is not None:
                 d = d + q_off[bs, ss].float()[:, :, None]
             if cand_off is not None:

@@ -8,6 +8,8 @@ Every architecture module exposes ``make_bundle(config, mesh) -> ModelBundle``:
   param_pspecs()    — the reference's partition specs of the parameters
   step(shape)       — a StepDef for a ShapeSpec: the step callable and the
                       specs of its data inputs
+  opt_specs()       — the AdamW state as meta tensors (train kinds; the dry
+                      run reads it), ``opt_pspecs()`` its partition specs
 
 Serving steps are ``fn(model, *inputs) -> outputs``; train steps are
 ``fn(state, batch) -> (state, metrics)`` with ``state`` a ``TrainState``.
@@ -74,11 +76,39 @@ class ModelBundle:
     # model -> the optimizer its train steps update (train kinds only)
     optimizer: Optional[Callable] = None
     param_pspecs: Optional[Callable] = None   # () -> {name: partition spec tuple}
+    # () -> the AdamW state's specs {"step", "mu", "nu"} and partition specs
+    opt_specs: Optional[Callable] = None
+    opt_pspecs: Optional[Callable] = None
 
 
 def sds(shape, dtype=torch.float32) -> torch.Tensor:
     """A shape and dtype without storage: a tensor on the meta device."""
     return torch.empty(tuple(int(s) for s in shape), dtype=dtype, device="meta")
+
+
+def _tree_map(fn, tree):
+    return {k: _tree_map(fn, v) for k, v in tree.items()} if isinstance(tree, dict) else fn(tree)
+
+
+def adamw_state_specs(param_specs_tree: dict) -> dict:
+    """The AdamW state of ``param_specs_tree`` as meta tensors, in the
+    reference's ``OptState(step, mu, nu)`` layout: a [] int32 step and f32
+    moments shaped as the parameters."""
+    def f32(s):
+        return sds(s.shape)
+
+    return {"step": sds((), torch.int32), "mu": _tree_map(f32, param_specs_tree),
+            "nu": _tree_map(f32, param_specs_tree)}
+
+
+def adamw_state_pspecs(param_pspecs_tree: dict) -> dict:
+    """Partition specs of ``adamw_state_specs``: the step replicated, each
+    moment as its parameter."""
+    def same(p):
+        return p
+
+    return {"step": (), "mu": _tree_map(same, param_pspecs_tree),
+            "nu": _tree_map(same, param_pspecs_tree)}
 
 
 def nest(flat: dict) -> dict:

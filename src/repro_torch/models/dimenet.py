@@ -51,8 +51,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import GNNConfig
 from repro_torch.core.kmeans import segment_sum
+from repro_torch.launch.mesh import psum
 from repro_torch.models.api import (ModelBundle, ShapeSpec, StepDef, TreeModel, adamw,
-                                    from_jax_tree, nest, on, replica, sds, to_jax_tree)
+                                    adamw_state_pspecs, adamw_state_specs, from_jax_tree, nest, on, replica, sds, to_jax_tree)
 from repro_torch.models.layers import take_rows
 from repro_torch.train import optimizer as opt
 
@@ -173,24 +174,21 @@ def sharded_edge_gather(feats: list, idx: list, devices: list) -> list:
     all the same), so the backward meets no long run of one row
     (``recsys._lookup``)."""
     e_loc = feats[0].shape[0]
-    tot = None
-    for r, (feat, ids) in enumerate(zip(feats, idx)):
+
+    def part(r, feat, ids):
         rel = ids - r * e_loc
         ok = (rel >= 0) & (rel < e_loc)
-        part = on(torch.where(ok[:, None], take_rows(feat, rel.remainder(e_loc)), 0.0),
+        return on(torch.where(ok[:, None], take_rows(feat, rel.remainder(e_loc)), 0.0),
                   devices[0])
-        tot = part if tot is None else tot + part
+
+    tot = psum(part(r, feat, ids) for r, (feat, ids) in enumerate(zip(feats, idx)))
     return [on(tot, dev) for dev in devices]
 
 
 def sharded_segment_to_nodes(feats: list, dst: list, n_nodes: int, devices: list):
     """Edge rows into whole node rows: each rank's segment sum [N, H] over
     its edges, summed in rank order on the first device."""
-    tot = None
-    for feat, d in zip(feats, dst):
-        part = on(segment_sum(feat, d, n_nodes), devices[0])
-        tot = part if tot is None else tot + part
-    return tot
+    return psum(on(segment_sum(feat, d, n_nodes), devices[0]) for feat, d in zip(feats, dst))
 
 
 def local_segment_to_edges(trips: list, ji_local: list, e_loc: int) -> list:
@@ -386,4 +384,7 @@ def make_bundle(cfg: GNNConfig, mesh) -> ModelBundle:
         param_pspecs=lambda shape=None: param_pspecs(cfg, d_feat_of(shape), mesh),
         step=step,
         optimizer=lambda model: adamw(model, opt.cosine_schedule(1e-3, 100, 10_000)),
+        opt_specs=lambda shape=None: adamw_state_specs(param_specs(cfg, d_feat_of(shape))),
+        opt_pspecs=lambda shape=None: adamw_state_pspecs(
+            param_pspecs(cfg, d_feat_of(shape), mesh)),
     )

@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.kmeans import segment_sum
+from repro_torch.launch import mesh as _mesh
 
 
 class _TakeRows(torch.autograd.Function):
@@ -254,9 +255,8 @@ def _sort_pack(key: torch.Tensor, n_buckets: int, capacity: int) -> torch.Tensor
 def all_to_all(bufs: list) -> list:
     """The ranks' send buffers [n, C, ...] (rank j's row k goes to rank k)
     -> the received ones: rank k gets [n, C, ...] with row j from rank j, on
-    its own buffer's device."""
-    n = len(bufs)
-    return [torch.stack([bufs[j][k].to(bufs[k].device) for j in range(n)]) for k in range(n)]
+    its own buffer's device (``launch.mesh.all_to_all``)."""
+    return _mesh.all_to_all(bufs)
 
 
 def moe_route(x: torch.Tensor, router_w: torch.Tensor, top_k: int):

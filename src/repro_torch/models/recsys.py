@@ -48,8 +48,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import RecsysConfig
 from repro_torch.distributed.sharding import axes_size, batch_axes, logical_to_pspec
-from repro_torch.models.api import (ModelBundle, ShapeSpec, StepDef, TreeModel, adamw, fill,
-                                    from_jax_tree, model_splits, nest, on, replica, sds,
+from repro_torch.launch.mesh import psum
+from repro_torch.models.api import (ModelBundle, ShapeSpec, StepDef, TreeModel, adamw,
+                                    adamw_state_pspecs, adamw_state_specs, fill, from_jax_tree, model_splits, nest, on, replica, sds,
                                     to_jax_tree)
 from repro_torch.models.layers import take_rows
 from repro_torch.train import optimizer as opt
@@ -78,14 +79,14 @@ def _lookup(tables, ids: torch.Tensor, gather) -> torch.Tensor:
     rows (which the card's deterministic ``index_put_`` adds one by one)."""
     tabs = _ranks(tables)
     v_loc = tabs[0].shape[1]
-    out = None
-    for j, tab in enumerate(tabs):
+
+    def part(j, tab):
         rel = on(ids, tab.device).long() - j * v_loc
         ok = (rel >= 0) & (rel < v_loc)
-        part = on(torch.where(ok[..., None], gather(tab, rel.remainder(v_loc)), 0.0),
+        return on(torch.where(ok[..., None], gather(tab, rel.remainder(v_loc)), 0.0),
                   tabs[0].device)
-        out = part if out is None else out + part
-    return out
+
+    return psum(part(j, tab) for j, tab in enumerate(tabs))
 
 
 def embedding_bag(tables, ids: torch.Tensor) -> torch.Tensor:
@@ -454,4 +455,6 @@ def make_bundle(cfg: RecsysConfig, mesh) -> ModelBundle:
         param_pspecs=lambda shape=None: param_pspecs(cfg, mesh),
         step=step,
         optimizer=lambda model: adamw(model, opt.cosine_schedule(1e-3, 100, 100_000)),
+        opt_specs=lambda shape=None: adamw_state_specs(param_specs(cfg)),
+        opt_pspecs=lambda shape=None: adamw_state_pspecs(param_pspecs(cfg, mesh)),
     )

@@ -65,11 +65,12 @@ from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_conte
 from repro_torch.configs.base import LMConfig
 from repro_torch.distributed.sharding import (axes_entry, axes_size, batch_axes,
                                               logical_to_pspec)
-from repro_torch.launch.mesh import AXES, make_mesh
+from repro_torch.launch.mesh import AXES, make_mesh, psum
 from repro_torch.models import layers as L
 # TrainState and adamw stay importable from here: the LM's Trainer state and optimizer
-from repro_torch.models.api import (ModelBundle, ShapeSpec, StepDef, TrainState, adamw, fill,
-                                   join, model_splits, nest, on, replica, sds, sliced)
+from repro_torch.models.api import (ModelBundle, ShapeSpec, StepDef, TrainState, adamw,
+                                   adamw_state_pspecs, adamw_state_specs, fill, join,
+                                   model_splits, nest, on, replica, sds, sliced)
 from repro_torch.train import optimizer as opt
 from repro_torch.utils.device import resolve_device
 
@@ -362,21 +363,25 @@ def _moe_block(h: torch.Tensor, lp, cfg: LMConfig, mesh, b_axes: tuple, *,
         else:
             x_flat = h_i.reshape(-1, d)
             tt = x_flat.shape[0]
-            tot, aux_i = None, None
-            for j, dev in enumerate(devs):
-                xj = on(x_flat, dev)
-                buf, gbuf, tbuf = L.moe_dispatch_local(xj, router[j], j * e_loc, e_loc,
-                                                       moe.top_k, capacity)
-                eout = L.moe_expert_ffn(buf, *experts[j])
-                part = on(L.moe_combine_local(eout, gbuf, tbuf, tt, moe.top_k), devs[0])
-                tot = part if tot is None else tot + part
-                if with_aux:                     # Switch: E · Σ_e f_e · p_e, local experts
-                    p_e = L.router_probs(xj, router[j]).mean(0)[j * e_loc:(j + 1) * e_loc]
-                    f_e = (tbuf < tt).sum(-1).float() / max(tt * moe.top_k, 1)
-                    a_j = on(moe.n_experts * (f_e * p_e).sum(), devs[0])
-                    aux_i = a_j if aux_i is None else aux_i + a_j
-            out_i = tot.reshape(h_i.shape).to(h.dtype)
+            aux_parts = []
+
+            def rank_parts():
+                for j, dev in enumerate(devs):
+                    xj = on(x_flat, dev)
+                    buf, gbuf, tbuf = L.moe_dispatch_local(xj, router[j], j * e_loc, e_loc,
+                                                           moe.top_k, capacity)
+                    eout = L.moe_expert_ffn(buf, *experts[j])
+                    yield on(L.moe_combine_local(eout, gbuf, tbuf, tt, moe.top_k), devs[0])
+                    if with_aux:                 # Switch: E · Σ_e f_e · p_e, local experts
+                        p_e = L.router_probs(xj, router[j]).mean(0)[j * e_loc:(j + 1) * e_loc]
+                        f_e = (tbuf < tt).sum(-1).float() / max(tt * moe.top_k, 1)
+                        aux_parts.append(on(moe.n_experts * (f_e * p_e).sum(), devs[0]))
+
+            out_i = psum(rank_parts()).reshape(h_i.shape).to(h.dtype)
             if with_aux:
+                aux_i = aux_parts[0]
+                for a_j in aux_parts[1:]:
+                    aux_i = aux_i + a_j
                 auxes.append(aux_i)
         outs.append(on(out_i, h.device))
     out = torch.cat(outs) if rows > 1 else outs[0]
@@ -399,11 +404,9 @@ def _sp_ffn(h2: torch.Tensor, lp) -> torch.Tensor:
     columns' ``(silu(h2 @ wg_j) * (h2 @ wi_j)) @ wo_ff_j`` and the partial
     outputs are summed in rank order in f32, then cast back: ``swiglu_mlp``
     up to the order of the sum over F."""
-    tot = None
-    for wi, wg, wo in zip(*(_shards(lp, n) for n in ("wi", "wg", "wo_ff"))):
-        part = on(L.swiglu_mlp(on(h2, wi.device), wi, wg, wo).float(), h2.device)
-        tot = part if tot is None else tot + part
-    return tot.to(h2.dtype)
+    return psum(on(L.swiglu_mlp(on(h2, wi.device), wi, wg, wo).float(), h2.device)
+                for wi, wg, wo in zip(*(_shards(lp, n) for n in ("wi", "wg", "wo_ff")))
+                ).to(h2.dtype)
 
 
 def _ffn(h2: torch.Tensor, lp, cfg: LMConfig, mesh, b_axes: tuple, seq_sharded: bool,
@@ -846,4 +849,6 @@ def make_bundle(cfg: LMConfig, mesh) -> ModelBundle:
         step=step,
         optimizer=lambda model: adamw(model, opt.cosine_schedule(3e-4, warmup=100, total=10_000),
                                       weight_decay=0.1),
+        opt_specs=lambda shape=None: adamw_state_specs(param_specs(cfg)),
+        opt_pspecs=lambda shape=None: adamw_state_pspecs(param_pspecs(cfg, mesh)),
     )

@@ -44,8 +44,9 @@ from repro_torch.core.redundancy import plan_redundancy, replica_rows
 from repro_torch.core import train_probing
 from repro_torch.core.train_probing import train_probing_model
 from repro_torch.kernels import ops as kops
-from repro_torch.launch.mesh import Mesh, make_test_mesh
-from repro_torch.models.api import ModelBundle, ShapeSpec, StepDef, sds
+from repro_torch.launch.mesh import Mesh, all_gather, make_test_mesh, psum
+from repro_torch.models.api import (ModelBundle, ShapeSpec, StepDef, adamw_state_pspecs,
+                                    adamw_state_specs, sds)
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.serving import api, mutable, scan, tiers
@@ -219,10 +220,10 @@ def make_serve_step(cfg: LiraSystemConfig, n_queries: int, *, sigma: float, impl
             if model_n > 1:
                 # the cross-rank merge: O(q_row·k·model_n), independent of N
                 with record_function("lira.merge"):
-                    all_d = torch.cat([r[0].to(dev0) for r in per], 1)
-                    all_i = torch.cat([r[1].to(dev0) for r in per], 1)
-                    dedup_hits = sum(r[4].to(dev0) for r in per) + _dup_count(all_i)
-                    overflow = sum(r[3].to(dev0) for r in per)
+                    all_d = all_gather([r[0].to(dev0) for r in per], 1)
+                    all_i = all_gather([r[1].to(dev0) for r in per], 1)
+                    dedup_hits = psum(r[4].to(dev0) for r in per) + _dup_count(all_i)
+                    overflow = psum(r[3].to(dev0) for r in per)
                     loc_d, loc_i = kops.dedup_topk(all_d, all_i, k, impl=impl)
             outs.append((loc_d, loc_i, nprobe, overflow, dedup_hits))
         if len(outs) == 1:
@@ -293,6 +294,8 @@ def make_bundle(cfg: LiraSystemConfig, mesh: Mesh) -> ModelBundle:
         step=step,
         optimizer=lambda model: opt.AdamW(model.parameters(),
                                           lr=opt.cosine_schedule(1e-3, 50, 5000)),
+        opt_specs=lambda shape=None: adamw_state_specs(param_specs()),
+        opt_pspecs=lambda shape=None: adamw_state_pspecs({n: () for n in param_specs()}),
     )
 
 

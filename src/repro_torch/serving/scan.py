@@ -80,3 +80,23 @@ def _quantized(impl, qbuf, q_pad, vecs_loc, ids_loc, k, lut_pad, codes_loc, rk, 
         out_d[b, s] = top_d
         out_i[b, s] = torch.gather(cid, 1, pos)
     return out_d, out_i
+
+
+# ----------------------------------------------------------- bytes accounting
+
+def staged_operand_bytes(qbuf, plane) -> dict:
+    """Stage 1's per-query operand staging for a dispatch shape. ``plane``
+    is the compact per-query operand the scan reads through ``qbuf`` —
+    ``q_pad`` [q_row + 1, d] for the f32 tier, ``lut_pad`` [q_row + 1, m,
+    ks] for the quantized tiers. Returns ``compact_bytes`` (the plane and
+    the int32 ``qbuf``, what the qbuf scans stage) and ``expanded_bytes``
+    (one plane row a dispatch slot, what a ``plane[qbuf]`` gather would
+    materialize). Takes tensors or meta tensors: only shapes and dtypes are
+    read."""
+    b_loc, q_cap = qbuf.shape
+    row_elems = 1
+    for s in plane.shape[1:]:
+        row_elems *= int(s)
+    row_bytes = row_elems * plane.dtype.itemsize
+    return {"compact_bytes": int(plane.shape[0]) * row_bytes + b_loc * q_cap * 4,
+            "expanded_bytes": b_loc * q_cap * row_bytes}

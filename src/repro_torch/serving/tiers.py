@@ -17,7 +17,10 @@ stores it can serve, and hands the scan its extra operands:
 
 Registered: ``f32`` (exact scan; ``cfg.store_dtype`` sets the vector plane's
 dtype), ``pq`` (shared-LUT ADC shortlist + exact rerank) and ``residual_pq``
-(codes over x − centroid, with the residual offsets).
+(codes over x − centroid, with the residual offsets). Adding a tier is one
+class decorated with ``register``, here or anywhere else: the engine, the
+scan, ``save`` / ``load`` and the serve cache resolve tiers by name and
+never branch on one.
 """
 from __future__ import annotations
 
@@ -30,6 +33,34 @@ import torch
 BASE_FIELDS = ("centroids", "vectors", "ids", "occupancy")
 
 STORE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+_REGISTRY: dict[str, "Tier"] = {}
+
+
+def register(cls):
+    """Class decorator: instantiate the tier and index it under its name and
+    aliases. A later registration of a name wins, so a test can shadow a
+    tier and restore it."""
+    tier = cls()
+    for name in (cls.name, *cls.aliases):
+        _REGISTRY[name] = tier
+    return cls
+
+
+def resolve(tier) -> "Tier":
+    """Tier name, alias or instance → the registered tier; a typo raises."""
+    if isinstance(tier, Tier):
+        return tier
+    try:
+        return _REGISTRY[tier]
+    except KeyError:
+        raise ValueError(f"unknown serving tier {tier!r}; registered tiers: "
+                         f"{names()}") from None
+
+
+def names() -> tuple:
+    """The registered tiers' canonical names, sorted (aliases collapsed)."""
+    return tuple(sorted({t.name for t in _REGISTRY.values()}))
 
 
 def store_dtype(cfg) -> torch.dtype:
@@ -51,13 +82,13 @@ class ScanContext:
     k: int                  # top-k depth of this serve step
 
 
-class F32Tier:
-    """The exact f32 scan. ``cfg.store_dtype`` sets the vector plane's dtype
-    (bfloat16 halves scan reads; distances accumulate in f32 either way, and
-    the quantized tiers' rerank upcasts to f32)."""
+class Tier:
+    """The base tier: the exact f32 scan. ``cfg.store_dtype`` sets the vector
+    plane's dtype (bfloat16 halves scan reads; distances accumulate in f32
+    either way, and the quantized tiers' rerank upcasts to f32)."""
 
     name = "f32"
-    aliases = ("exact", "float32")
+    aliases: tuple = ()
 
     def store_specs(self, cfg) -> dict:
         """Field name → (shape, dtype)."""
@@ -105,7 +136,14 @@ class F32Tier:
         return {}
 
 
-class PqTier(F32Tier):
+@register
+class F32Tier(Tier):
+    name = "f32"
+    aliases = ("exact", "float32")
+
+
+@register
+class PqTier(Tier):
     """Two-stage quantized tier: one ADC LUT per query → a shortlist of
     ``rerank·k`` slots over the uint8 codes → exact f32 rerank
     (serving/quantized.py builds the store)."""
@@ -183,6 +221,7 @@ class PqTier(F32Tier):
         return {"lut_pad": lut_pad, "codes_loc": codes, "rk": rk}
 
 
+@register
 class ResidualPqTier(PqTier):
     """PQ over x − centroid: the code budget goes to the within-partition
     residual, paid for by a per-slot cterm plane and a per-(query,
@@ -213,17 +252,3 @@ class ResidualPqTier(PqTier):
                   off_loc=off_pad[:, ctx.b0:ctx.b0 + ctx.b_loc].T)
         return kw
 
-
-_TIERS = (F32Tier(), PqTier(), ResidualPqTier())
-_REGISTRY = {name: t for t in _TIERS for name in (t.name, *t.aliases)}
-
-
-def resolve(tier) -> F32Tier:
-    """Tier name, alias or instance → the registered tier; a typo raises."""
-    if isinstance(tier, F32Tier):
-        return tier
-    try:
-        return _REGISTRY[tier]
-    except KeyError:
-        raise ValueError(f"unknown serving tier {tier!r}; available: "
-                         f"{sorted(_REGISTRY)}") from None

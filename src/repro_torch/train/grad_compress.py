@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.launch.mesh import psum
+
 
 def _quantize(x: torch.Tensor):
     """(q int8, scale f32 []): scale = max|x| / 127 (at least 1e-20 / 127),
@@ -35,16 +37,16 @@ def compressed_psum_pod(grads, err, mesh):
         raise ValueError(f"{len(grads)} gradient and {len(err)} error lists for "
                          f"{npod} pod ranks")
     reduced, new_err = [], [[] for _ in range(npod)]
+
+    def dequantized(i, p):
+        x = grads[p][i].float() + err[p][i]               # error feedback
+        q, scale = _quantize(x)
+        deq = q.float() * scale
+        new_err[p].append(x - deq)                        # carried to the next step
+        return deq.to(grads[0][i].device)
+
     for i in range(len(grads[0])):
-        tot = None
-        for p in range(npod):
-            x = grads[p][i].float() + err[p][i]           # error feedback
-            q, scale = _quantize(x)
-            deq = q.float() * scale
-            new_err[p].append(x - deq)                    # carried to the next step
-            deq = deq.to(grads[0][i].device)
-            tot = deq if tot is None else tot + deq
-        reduced.append(tot / npod)
+        reduced.append(psum(dequantized(i, p) for p in range(npod)) / npod)
     return reduced, new_err
 
 
