@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by nvcc
 into its own shared library, loaded with ctypes (no PyTorch headers, so a
 build takes seconds). Libraries land in ``build/repro_torch/`` at the root of
 the checkout, named by a hash of the source, the headers beside it and the
-flags, so an edited source is rebuilt at its next use.
+flags, so an edited source is rebuilt at its next use. Each nvcc run adds
+its seconds to ``lira_kernel_build_seconds_total{kernel}`` in
+``obs.default_registry()``.
 
 Nothing here runs at import time: the CPU tests import every module on a
 machine without nvcc.
@@ -36,6 +38,14 @@ def _nvcc() -> str:
     return path
 
 
+def _build_seconds():
+    """The process-wide counter of the seconds nvcc ran, by kernel."""
+    from repro_torch.obs.metrics import default_registry
+
+    return default_registry().counter("lira_kernel_build_seconds_total",
+                                      "seconds nvcc ran, by kernel library")
+
+
 def _lib_path(name: str) -> pathlib.Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     h.update((CSRC / f"{name}.cu").read_bytes())
@@ -64,9 +74,11 @@ def build_all(names=SOURCES) -> dict[str, float]:
                        tmp, out, time.perf_counter())
     seconds = {name: 0.0 for name in names}
     failed = []
+    build_s = _build_seconds()
     for name, (proc, tmp, out, t0) in procs.items():
         log, _ = proc.communicate()
         seconds[name] = time.perf_counter() - t0
+        build_s.inc(seconds[name], kernel=name)
         out.with_suffix(".log").write_text(log)
         if proc.returncode != 0:
             failed.append(f"{name} (exit {proc.returncode}):\n{log}")
@@ -84,9 +96,12 @@ def build_log(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library for ``csrc/<name>.cu``, built first if needed. A
+    process that loaded one has the compile counter, zero where nothing was
+    compiled."""
     lib = _LIBS.get(name)
     if lib is None:
+        _build_seconds()
         path = _lib_path(name)
         if not path.exists():
             build_all((name,))

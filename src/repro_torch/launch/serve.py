@@ -46,7 +46,9 @@ def main(argv=None):
                          "this directory (TensorBoard / Perfetto; the serve step's "
                          "lira.probing/dispatch/scan/merge ranges)")
     ap.add_argument("--trace-out", default="",
-                    help="stream host-side serving spans to this JSON-lines file")
+                    help="stream host-side spans to this JSON-lines file: the index "
+                         "build's stages (build.kmeans ... build.tier), then serving "
+                         "(engine.*, the serve step's lira.* stages)")
     args = ap.parse_args(argv)
 
     from repro_torch.configs.base import FrontendConfig
@@ -65,17 +67,15 @@ def main(argv=None):
     ds = make_vector_dataset(n=args.n, n_queries=args.queries, dim=64, n_modes=64, seed=4)
     mesh = make_test_mesh(1, 2, device=dev)
     print(f"building index on {dev} (mesh {mesh.shape})…")
+    tracer = Tracer(sink=args.trace_out) if args.trace_out else None
     engine = LiraEngine.build(ds.base, BuildConfig(
         n_partitions=args.partitions, k=10, eta=0.05, train_frac=0.4, epochs=5,
         tier=args.tier, rerank=args.rerank, impl=args.impl,
-        auto_q_cap=args.auto_q_cap), device=dev, mesh=mesh)
+        auto_q_cap=args.auto_q_cap), device=dev, mesh=mesh, tracer=tracer)
     if args.tier != "f32":
         sb = scan_store_bytes(engine.store)
         print(f"  {args.tier} tier: m={engine.cfg.pq_m} ks={engine.cfg.pq_ks} "
               f"rerank={engine.cfg.rerank}; scan store x{sb['ratio']:.1f} smaller")
-    if args.trace_out:
-        engine.tracer = Tracer(sink=args.trace_out)
-
     print(f"serving {args.queries} queries…")
     with profile_capture(args.profile_dir):
         t0 = time.time()

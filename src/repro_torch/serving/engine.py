@@ -1,7 +1,8 @@
 """LIRA serving engine (counterpart of ``repro/serving/engine.py``).
 
 serve step (each stage a ``torch.profiler.record_function`` range named in
-``obs.profiling.RANGES``), run by every rank of the engine's mesh
+``obs.profiling.RANGES`` and a span of the same name on the engine's tracer,
+entered together by ``_stage``), run by every rank of the engine's mesh
 (``launch/mesh.py``: one process, ranks over ``("data", "model")``, each on a
 device) for its rows of the batch and its block of partitions:
   1. probing: query→centroid distances, the probing MLP, σ-masked
@@ -19,15 +20,18 @@ device) for its rows of the batch and its block of partitions:
      ``dedup_topk`` again (the reference's ``all_gather`` and ``psum``).
 
 The engine around it: a serve cache keyed like the reference's jit cache,
-spans and metrics (``obs/``), the single-query entry point and the batching
-front-end (serving/frontend.py), the mutable index (insert, delete, compact,
+spans and metrics (``obs/``: the build's five stages, each stage of the
+serve step, the live rows the scan reads and the merge pool's fill), the
+single-query entry point and the batching front-end (serving/frontend.py), the mutable index (insert, delete, compact,
 staleness-driven repartition, store epochs) and ``save`` / ``load`` in the
 reference's checkpoint layout.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
+import time
 from typing import Optional
 
 import numpy as np
@@ -49,6 +53,7 @@ from repro_torch.models.api import (ModelBundle, ShapeSpec, StepDef, adamw_state
                                     adamw_state_specs, sds)
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.profiling import RANGES
 from repro_torch.serving import api, mutable, scan, tiers
 from repro_torch.serving.frontend import ServingFrontend
 from repro_torch.train import optimizer as opt
@@ -68,6 +73,58 @@ def _dup_count(ids_pool: torch.Tensor) -> torch.Tensor:
     first = torch.ones_like(valid)
     first[:, 1:] = s[:, 1:] != s[:, :-1]
     return (valid.sum(1) - (valid & first).sum(1)).sum()
+
+
+@contextlib.contextmanager
+def _stage(tracer, name: str, **attrs):
+    """One stage of the serve step: the profiler range ``name`` (one of
+    ``RANGES``, the only range names the step may use) and a span of the
+    same name on ``tracer``, entered and left together."""
+    if name not in RANGES:
+        raise ValueError(f"{name!r} is not a serve-step range {RANGES}")
+    with record_function(name), tracer.span(name, **attrs):
+        yield
+
+
+def _count(counts: dict, name: str, value) -> None:
+    """Add ``value`` (a device scalar or a Python number) to
+    ``counts[name]``, on the device of the first value counted there."""
+    have = counts.get(name)
+    if have is None:
+        counts[name] = value
+    elif isinstance(have, torch.Tensor):
+        counts[name] = have + value.to(have.device)
+    else:
+        counts[name] = have + value
+
+
+def _live_rows(block: dict) -> torch.Tensor:
+    """Live rows per partition of a rank's block ([b_loc] int64), kept in the
+    block and counted again only when the occupancy plane has been written
+    in place since (its version counter moved). A sum over the bool plane
+    goes through an int64 copy of it: 0.2 ms a call at [1,024, 31,424] on an
+    H100."""
+    occ = block["occupancy"]
+    kept = block.get("live_rows")
+    if kept is None or kept[0] != occ._version:
+        kept = block["live_rows"] = (occ._version, occ.sum(1))
+    return kept[1]
+
+
+@contextlib.contextmanager
+def _build_stage(tracer, registry, dev: torch.device, stage: str):
+    """One stage of ``LiraEngine.build``: a ``build.<stage>`` span that ends
+    with a synchronize of ``dev``, so the card's work counts under the stage
+    that queued it, and the stage's seconds added to
+    ``lira_build_seconds_total{stage}``."""
+    t0 = time.perf_counter()
+    with tracer.span(f"build.{stage}"):
+        yield
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    registry.counter("lira_build_seconds_total",
+                     "seconds LiraEngine.build spent in each stage").inc(
+        time.perf_counter() - t0, stage=stage)
 
 
 def batch_mesh_info(mesh: Mesh):
@@ -114,10 +171,17 @@ def make_serve_step(cfg: LiraSystemConfig, n_queries: int, *, sigma: float, impl
                     k: int, mesh: Mesh, tier=None):
     """The serve step for one batch size, kernel backend (``"ref"`` or
     ``"cuda"``), mesh and tier (default ``cfg.tier``). Returns
-    ``serve_step(ranks, queries [n, d], valid [n] bool) → (dists [n, k],
-    ids [n, k], nprobe_eff [n] f32, overflow [], dedup_hits [])`` on the
-    first rank's device; ``ranks`` is ``place_ranks``' placement of the
-    model and store over ``mesh``.
+    ``serve_step(ranks, queries [n, d], valid [n] bool, *, tracer, counts)
+    → (dists [n, k], ids [n, k], nprobe_eff [n] f32, overflow [],
+    dedup_hits [])`` on the first rank's device; ``ranks`` is
+    ``place_ranks``' placement of the model and store over ``mesh``. Each
+    stage opens a span on ``tracer`` (default ``NOOP``) with its rank's
+    model index, ``rank``. Given a dict ``counts``, each rank adds to it
+    what its dispatch hands the scan and the merge: ``scan_pair_rows``, the
+    live rows of each partition summed over the partition's dispatched
+    queries (a device scalar); ``pool_written``, the merge pool's entries
+    those pairs' top-k fill (a device scalar); and ``pool_allocated``, the
+    entries the pool holds (an int).
 
     The batch splits into ``bprod`` rows of ``q_row`` queries (the batch
     axes) and the partitions into ``model_n`` blocks of ``b_loc``; each rank
@@ -143,14 +207,14 @@ def make_serve_step(cfg: LiraSystemConfig, n_queries: int, *, sigma: float, impl
     # to the tier, which assembles the scan's extra operands from them
     extra_fields = tuple(n for n in tier.store_specs(cfg) if n not in tiers.BASE_FIELDS)
 
-    def rank_step(model, block, q, valid, b0):
+    def rank_step(model, block, q, valid, b0, tracer, counts, rank):
         dev = q.device
         # tombstoned/free slots never surface ids: occupancy folds into the id
         # plane, which the scan masks as id < 0
         ids_loc = torch.where(block["occupancy"], block["ids"], -1)
 
         # ---- probing, over every partition
-        with record_function("lira.probing"):
+        with _stage(tracer, "lira.probing", rank=rank):
             cents = block["centroids"]
             cd = ((q * q).sum(-1, keepdim=True)
                   - 2.0 * q @ cents.T
@@ -166,7 +230,7 @@ def make_serve_step(cfg: LiraSystemConfig, n_queries: int, *, sigma: float, impl
             probe_ok &= valid[:, None]                               # padding rows never probe
 
         # ---- dispatch (sort-based), this rank's partitions only
-        with record_function("lira.dispatch"):
+        with _stage(tracer, "lira.dispatch", rank=rank):
             flat_p = pidx.reshape(-1) - b0
             flat_ok = probe_ok.reshape(-1) & (flat_p >= 0) & (flat_p < b_loc)
             flat_q = torch.arange(q_row, device=dev)[:, None].expand_as(pidx).reshape(-1)
@@ -184,9 +248,14 @@ def make_serve_step(cfg: LiraSystemConfig, n_queries: int, *, sigma: float, impl
             qbuf = torch.full((b_loc + 1, q_cap), q_row, dtype=torch.int32, device=dev)
             qbuf[row, col] = flat_q[order].to(torch.int32)
             qbuf = qbuf[:b_loc]                                      # q_row = empty slot
+            if counts is not None:
+                occ = (qbuf < q_row).sum(1)
+                _count(counts, "scan_pair_rows", (occ * _live_rows(block)).sum())
+                _count(counts, "pool_written", occ.sum() * k)
+                _count(counts, "pool_allocated", (q_row + 1) * b_loc * k)
 
         # ---- per-partition scan
-        with record_function("lira.scan"):
+        with _stage(tracer, "lira.scan", rank=rank):
             q_pad = torch.cat([q, torch.full((1, q.shape[1]), _SENTINEL, dtype=q.dtype,
                                              device=dev)])
             ctx = tiers.ScanContext(q_loc=q, q_pad=q_pad, cd=cd, b0=b0, b_loc=b_loc, k=k)
@@ -194,7 +263,7 @@ def make_serve_step(cfg: LiraSystemConfig, n_queries: int, *, sigma: float, impl
             dists, rids = scan.run(impl, qbuf, q_pad, block["vectors"], ids_loc, k, **scan_kw)
 
         # ---- scatter back per query (row q_row takes the empty slots), merge
-        with record_function("lira.merge"):
+        with _stage(tracer, "lira.merge", rank=rank):
             out_d = torch.full((q_row + 1, b_loc, k), torch.inf, dtype=torch.float32,
                                device=dev)
             out_i = torch.full((q_row + 1, b_loc, k), -1, dtype=torch.int32, device=dev)
@@ -209,17 +278,17 @@ def make_serve_step(cfg: LiraSystemConfig, n_queries: int, *, sigma: float, impl
         return loc_d, loc_i, probe_ok.sum(-1).float(), overflow, dedup_hits
 
     @torch.no_grad()
-    def serve_step(ranks, queries, valid):
+    def serve_step(ranks, queries, valid, *, tracer=obs_trace.NOOP, counts=None):
         outs = []
         for i, row in enumerate(ranks):
             q, v = queries[i * q_row:(i + 1) * q_row], valid[i * q_row:(i + 1) * q_row]
-            per = [rank_step(m, block, q.to(dev), v.to(dev), j * b_loc)
+            per = [rank_step(m, block, q.to(dev), v.to(dev), j * b_loc, tracer, counts, j)
                    for j, (dev, m, block) in enumerate(row)]
             dev0 = row[0][0]
             loc_d, loc_i, nprobe, overflow, dedup_hits = per[0]
             if model_n > 1:
                 # the cross-rank merge: O(q_row·k·model_n), independent of N
-                with record_function("lira.merge"):
+                with _stage(tracer, "lira.merge", rank=0, ranks=model_n):
                     all_d = all_gather([r[0].to(dev0) for r in per], 1)
                     all_i = all_gather([r[1].to(dev0) for r in per], 1)
                     dedup_hits = psum(r[4].to(dev0) for r in per) + _dup_count(all_i)
@@ -406,11 +475,20 @@ class LiraEngine:
 
     @classmethod
     def build(cls, x, config: api.BuildConfig, *, device=None,
-              mesh: Optional[Mesh] = None) -> "LiraEngine":
+              mesh: Optional[Mesh] = None, tracer=None, metrics=None) -> "LiraEngine":
         """Build an index over ``x`` [N, d] (array or tensor) on ``device``
         (default the card; raises when there is none), served over ``mesh``
-        (default one rank on ``device``)."""
+        (default one rank on ``device``). A ``build`` span on ``tracer``
+        (None: ``NOOP``) holds one span a stage, ``build.kmeans``,
+        ``build.train`` (the subsample, its exact k-NN labels and the probing
+        model), ``build.redundancy``, ``build.store`` (the padded plane) and
+        ``build.tier`` (the tier's store: a cast, or PQ's codebooks and
+        codes); each stage ends by synchronizing ``device`` and adds its
+        seconds to ``metrics``' (None: ``default_registry()``)
+        ``lira_build_seconds_total{stage}``. The engine keeps both."""
         dev = resolve_device(device)
+        tr = tracer if tracer is not None else obs_trace.NOOP
+        reg = metrics if metrics is not None else obs_metrics.default_registry()
         tier = tiers.resolve(config.tier)
         gen = torch.Generator(device=dev)
         gen.manual_seed(config.seed)
@@ -418,39 +496,47 @@ class LiraEngine:
         n_partitions = config.n_partitions
         xt = torch.as_tensor(x, dtype=torch.float32, device=dev)
         n = xt.shape[0]
-        st = kmeans_fit(xt, n_partitions, n_iters=20, generator=gen)
-        assign, cents = st.assign, st.centroids
+        with tr.span("build", rows=n, partitions=n_partitions, tier=tier.name):
+            with _build_stage(tr, reg, dev, "kmeans"):
+                st = kmeans_fit(xt, n_partitions, n_iters=20, generator=gen)
+                assign, cents = st.assign, st.centroids
 
-        sub = torch.as_tensor(host.choice(n, int(n * config.train_frac), replace=False),
-                              device=dev)
-        xs = xt[sub]
-        _, sti = gt.exact_knn(xs, xs, config.k, exclude_self=True)
-        part_of = assign[sub].long()
-        lab = torch.zeros((len(sub), n_partitions), dtype=torch.float32, device=dev)
-        rows = torch.arange(len(sub), device=dev).repeat_interleave(sti.shape[1])
-        lab[rows, part_of[torch.as_tensor(sti, device=dev).long()].reshape(-1)] = 1.0
-        model, _ = train_probing_model(xs, lab, cents, epochs=config.epochs,
-                                       log=config.log, generator=gen)
+            with _build_stage(tr, reg, dev, "train"):
+                sub = torch.as_tensor(host.choice(n, int(n * config.train_frac), replace=False),
+                                      device=dev)
+                xs = xt[sub]
+                _, sti = gt.exact_knn(xs, xs, config.k, exclude_self=True)
+                part_of = assign[sub].long()
+                lab = torch.zeros((len(sub), n_partitions), dtype=torch.float32, device=dev)
+                rows = torch.arange(len(sub), device=dev).repeat_interleave(sti.shape[1])
+                lab[rows, part_of[torch.as_tensor(sti, device=dev).long()].reshape(-1)] = 1.0
+                model, _ = train_probing_model(xs, lab, cents, epochs=config.epochs,
+                                               log=config.log, generator=gen)
 
-        ids = np.arange(n, dtype=np.int32)
-        plan = plan_redundancy(model, xt, assign, cents, eta=config.eta)
-        extra = replica_rows(plan, xt, ids)
-        store_h = build_store(xt, ids, assign, cents, extra=extra)
-        cfg = LiraSystemConfig(
-            arch="lira", dim=xt.shape[1], n_partitions=n_partitions,
-            capacity=store_h.capacity, k=config.k,
-            nprobe_max=min(n_partitions, config.nprobe_max or max(8, n_partitions // 8)),
-            tier=tier.name, pq_m=config.pq_m or 0, pq_ks=config.pq_ks,
-            rerank=config.rerank, impl=config.impl, store_dtype=config.store_dtype,
-            q_cap_factor=config.q_cap_factor, auto_q_cap=config.auto_q_cap,
-            eta=config.eta)
-        # the tier builds its store and may amend cfg (PQ resolves pq_m and
-        # clamps pq_ks for a small store)
-        store, cfg = tier.build_store(cfg, store_h, generator=gen)
-        if not cfg.pq_m:  # tiers without PQ leave the knob at its default
-            cfg = dataclasses.replace(cfg, pq_m=16)
+            with _build_stage(tr, reg, dev, "redundancy"):
+                ids = np.arange(n, dtype=np.int32)
+                plan = plan_redundancy(model, xt, assign, cents, eta=config.eta)
+                extra = replica_rows(plan, xt, ids)
+
+            with _build_stage(tr, reg, dev, "store"):
+                store_h = build_store(xt, ids, assign, cents, extra=extra)
+
+            with _build_stage(tr, reg, dev, "tier"):
+                cfg = LiraSystemConfig(
+                    arch="lira", dim=xt.shape[1], n_partitions=n_partitions,
+                    capacity=store_h.capacity, k=config.k,
+                    nprobe_max=min(n_partitions, config.nprobe_max or max(8, n_partitions // 8)),
+                    tier=tier.name, pq_m=config.pq_m or 0, pq_ks=config.pq_ks,
+                    rerank=config.rerank, impl=config.impl, store_dtype=config.store_dtype,
+                    q_cap_factor=config.q_cap_factor, auto_q_cap=config.auto_q_cap,
+                    eta=config.eta)
+                # the tier builds its store and may amend cfg (PQ resolves pq_m and
+                # clamps pq_ks for a small store)
+                store, cfg = tier.build_store(cfg, store_h, generator=gen)
+                if not cfg.pq_m:  # tiers without PQ leave the knob at its default
+                    cfg = dataclasses.replace(cfg, pq_m=16)
         return cls(cfg=cfg, model=model, store=store, device=dev, sigma=config.sigma,
-                   mesh=mesh)
+                   mesh=mesh, tracer=tracer, metrics=metrics)
 
     # ------------------------------------------------------------ serving
 
@@ -527,18 +613,23 @@ class LiraEngine:
                 qp[:nq] = torch.as_tensor(q, device=self.device)
                 valid = torch.zeros((nq_pad,), dtype=torch.bool, device=self.device)
                 valid[:nq] = True
+            counts = {}
             with tr.span("engine.device", tier=tier_obj.name, impl=impl, bucket=nq_pad,
                          cache_hit=cache_hit) as sp_dev:
-                d, i, npb, ovf, dups = fn(self.rank_operands(), qp, valid)
+                d, i, npb, ovf, dups = fn(self.rank_operands(), qp, valid, tracer=tr,
+                                          counts=counts)
                 # the span ends when the ranks' devices have finished, not
                 # when the launches were queued
-                for dev in self.mesh.unique_devices():
-                    if dev.type == "cuda":
-                        torch.cuda.synchronize(dev)
+                with tr.span("engine.sync"):
+                    for dev in self.mesh.unique_devices():
+                        if dev.type == "cuda":
+                            torch.cuda.synchronize(dev)
             with tr.span("engine.post") as sp_post:
                 npb_np = npb[:nq].cpu().numpy()
-                overflow = int(ovf)
-                dedup_hits = int(dups)
+                # the step's scalars come back in one copy
+                overflow, dedup_hits, pair_rows, written = torch.stack([
+                    t.to(ovf.device) for t in (ovf, dups, counts["scan_pair_rows"],
+                                               counts["pool_written"])]).tolist()
                 dists = d[:nq].cpu().numpy()
                 ids_np = i[:nq].cpu().numpy()
             sp_root.set(tier=tier_obj.name, impl=impl, rows=nq)
@@ -558,6 +649,14 @@ class LiraEngine:
                   "probes dropped by q_cap bucket overflow").inc(overflow, **lbl)
         m.counter("lira_engine_dedup_hits_total",
                   "replica-duplicate candidate slots merged away").inc(dedup_hits, **lbl)
+        m.counter("lira_engine_scan_pair_rows_total",
+                  "live rows the scan reads: each probed partition's live rows, once a "
+                  "dispatched query").inc(pair_rows, **lbl)
+        pool = m.counter("lira_engine_merge_pool_entries_total",
+                         "the merge pool's (distance, id) entries: allocated, and written "
+                         "by the dispatched pairs' top-k")
+        pool.inc(counts["pool_allocated"], kind="allocated", **lbl)
+        pool.inc(written, kind="written", **lbl)
         m.counter("lira_engine_jit_cache_hits_total" if cache_hit
                   else "lira_engine_jit_cache_misses_total", "serve-step cache").inc(**lbl)
         m.histogram("lira_engine_nprobe_eff", "effective probes per query (σ-adaptive fan-out)",

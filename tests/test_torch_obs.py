@@ -331,11 +331,39 @@ def test_tracer_matches_reference(tmp_path):
     assert out["port"]["n"] == 7 and len(out["port"]["sunk"]) == 16
 
 
+# what the port records and the reference does not: the serve step's four
+# stages and the device sync as spans, the scan's live rows and the merge
+# pool's entries as series
+PORT_ONLY_SPANS = ("lira.probing", "lira.dispatch", "lira.scan", "lira.merge", "engine.sync")
+PORT_ONLY_SERIES = ("lira_engine_scan_pair_rows_total", "lira_engine_merge_pool_entries_total")
+
+
+def _without_spans(spans: list, names) -> list:
+    """``spans`` ((name, id, parent, duration, attrs), ids in opening order)
+    with the spans called ``names`` taken out: the rest renumbered 1, 2, ...
+    in their order of opening, each linked to its nearest kept ancestor."""
+    parent_of = {sp[1]: sp[2] for sp in spans}
+    kept = sorted(sp[1] for sp in spans if sp[0] not in names)
+    new_id = {old: i + 1 for i, old in enumerate(kept)}
+
+    def ancestor(pid):
+        while pid is not None and pid not in new_id:
+            pid = parent_of[pid]
+        return new_id.get(pid)
+
+    return [(n, new_id[i], ancestor(p), ms, attrs) for n, i, p, ms, attrs in spans
+            if n not in names]
+
+
 def test_engine_and_frontend_spans_match_reference(tmp_path):
     """A JAX engine and the port's engine loaded from its save, each with a
     Tracer on a FakeClock, serve one search, one front-end batch and the
     four kinds of mutation: the same spans (names, nesting, attributes)
-    and the same stage keys, and the same metric series and values."""
+    and the same stage keys, and the same metric series and values, once
+    the port's own spans and series (``PORT_ONLY_SPANS``,
+    ``PORT_ONLY_SERIES``) are taken out; those sit where the serve step
+    puts them, the four stages and then the sync inside each
+    ``engine.device``."""
     from _torch_engines import jax_and_port
 
     jax_metrics, jax_trace, JaxFakeClock = _reference_obs()
@@ -367,8 +395,21 @@ def test_engine_and_frontend_spans_match_reference(tmp_path):
             stages=(sorted(res.stats.stages), sorted(pends[0].result().stats.stages)),
             series=parse_exposition(eng.metrics.render()), epoch=eng.epoch)
         eng.frontend = None
-    assert out["torch"] == out["jax"]
-    assert out["torch"]["epoch"] == 4 and len(out["torch"]["spans"]) > 10
+    port = out["torch"]
+    spans = port["spans"]
+    device = [sp for sp in spans if sp[0] == "engine.device"]
+    assert len(device) == 2                        # the search and the front-end batch
+    for dev in device:
+        inside = sorted((sp for sp in spans if sp[2] == dev[1]), key=lambda sp: sp[1])
+        assert [sp[0] for sp in inside] == list(PORT_ONLY_SPANS)
+        assert [sp[4] for sp in inside] == [{"rank": 0}] * 4 + [{}]
+    assert sum(sp[0] in PORT_ONLY_SPANS for sp in spans) == 5 * len(device)
+    own = {key for key in port["series"] if key.split("{")[0] in PORT_ONLY_SERIES}
+    assert {key.split("{")[0] for key in own} == set(PORT_ONLY_SERIES)
+    port = dict(port, spans=_without_spans(spans, PORT_ONLY_SPANS),
+                series={key: v for key, v in port["series"].items() if key not in own})
+    assert port == out["jax"]
+    assert port["epoch"] == 4 and len(port["spans"]) > 10
 
 
 # --------------------------------------------------- serving integration
@@ -381,17 +422,29 @@ def obs_engines():
 
 @pytest.mark.parametrize("tier", TIERS)
 def test_tracing_is_bit_identical(obs_engines, tier):
-    """Attaching a tracer and a registry changes no bit of the answer."""
+    """Attaching a tracer and a registry changes no bit of the answer, nor
+    what the engine counts of the scan and the merge pool."""
     engines, q = obs_engines
     eng = engines[tier]
     req = SearchRequest(queries=q)
     eng.tracer, eng.metrics = None, None
+    counts = ("lira_engine_scan_pair_rows_total", "lira_engine_merge_pool_entries_total")
+
+    def counted(reg):
+        return [reg.counter(name).total(tier=tier, impl="ref", **kind) for name, kind in
+                ((counts[0], {}), (counts[1], {"kind": "allocated"}),
+                 (counts[1], {"kind": "written"}))]
+
+    before = counted(default_registry())
     off = eng.search(req)
+    off_counts = [b - a for a, b in zip(before, counted(default_registry()))]
     eng.tracer, eng.metrics = Tracer(), MetricsRegistry()
     try:
         on = eng.search(req)
+        on_counts = counted(eng.metrics)
     finally:
         eng.tracer, eng.metrics = None, None
+    assert off_counts == on_counts and min(on_counts) > 0
     np.testing.assert_array_equal(off.dists, on.dists)
     np.testing.assert_array_equal(off.ids, on.ids)
     np.testing.assert_array_equal(off.nprobe_eff, on.nprobe_eff)
