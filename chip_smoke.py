@@ -411,12 +411,19 @@ def compare_adc_trio(what, lut_pad, qbuf, codes, cand_ids, k, cand_off, q_off) -
 
 
 def compare_dedup(what, dists, ids, k) -> float:
-    """Kernel vs plain version: no arithmetic, so equal element for element."""
+    """Kernel vs plain version: no arithmetic, so the answers and the
+    duplicate counts equal element for element."""
+    import torch
+
     from repro_torch import testing as rt
     from repro_torch.kernels import ops as kops
 
-    d_k, i_k = kops.dedup_topk(dists, ids, k, impl="cuda")
-    d_p, i_p = kops.dedup_topk(dists, ids, k, impl="ref")
+    dups_k, dups_p = (torch.empty(dists.shape[0], dtype=torch.int64, device=dists.device)
+                      for _ in range(2))
+    d_k, i_k = kops.dedup_topk(dists, ids, k, impl="cuda", dups=dups_k)
+    d_p, i_p = kops.dedup_topk(dists, ids, k, impl="ref", dups=dups_p)
+    if not torch.equal(dups_k, dups_p):
+        raise AssertionError(f"{what}: duplicate counts differ")
     return rt.assert_topk_match(d_k, i_k, d_p, i_p, 0.0, exact_ids=True, what=what)
 
 
@@ -446,7 +453,7 @@ def compare_scan(what, q, cands, ids, k, *, batched, exact_ids=False) -> float:
 
 def edge_cases(dev) -> None:
     """Each kernel against its plain version at every edge case, at the main
-    paths' widths (d = 128, k = 100; merge rows of 102,400 entries; ADC with
+    paths' widths (d = 128, k = 100; merge rows of 6,400 entries; ADC with
     m = 16, ks = 256, k = 400)."""
     import torch
 
@@ -1487,7 +1494,7 @@ def hold_kernels(what, calls) -> dict:
         elif name == "dedup_topk":
             err = compare_dedup(f"{what} dedup_topk {shape}", *args)
             pd, _, k = args
-            kernel = lambda: dd_mod.dedup_topk(*args)  # noqa: E731
+            kernel = lambda: dd_mod.dedup_topk(*args, **kw)  # noqa: E731
             bound = (pd.numel() * 8 + pd.shape[0] * k * 8, 0.0, PEAK_OPS["float32"])
         else:
             err = compare_adc(f"{what} pq_adc_topk_qbuf {shape}", *args, kw["cand_off"],

@@ -126,15 +126,17 @@ def pq_adc_topk_batched(lut, codes, cand_ids, k: int, *, cand_off=None, q_off=No
     return _adc.pq_adc_topk_batched(lut, codes, cand_ids, k, cand_off=cand_off, q_off=q_off)
 
 
-def dedup_topk(dists, ids, k: int, *, impl: str | None = None):
+def dedup_topk(dists, ids, k: int, *, impl: str | None = None, dups=None):
     """Replica-aware merge: collapse duplicate ids to their best distance,
-    then exact top-k ordered by (dist, id)."""
+    then exact top-k ordered by (dist, id). Given ``dups`` (int64 [Q], on the
+    pool's device), each row's duplicate count is written into it: its slots
+    with an id ≥ 0 less the distinct ids among them."""
     impl = resolve_impl(impl, dists.device)
     dists = dists.to(torch.float32)
     ids = ids.to(torch.int32)
     if impl == "ref":
-        return _ref.dedup_topk_ref(dists, ids, k)
-    return _dd.dedup_topk(dists, ids, k)
+        return _ref.dedup_topk_ref(dists, ids, k, dups=dups)
+    return _dd.dedup_topk(dists, ids, k, dups=dups)
 
 
 def kmeans_assign(x, centroids, *, impl: str | None = None):

@@ -181,7 +181,7 @@ def pq_adc_topk_qbuf_ref(lut_pad: torch.Tensor, qbuf: torch.Tensor, codes: torch
     return out_d, out_i
 
 
-def dedup_topk_ref(dists: torch.Tensor, ids: torch.Tensor, k: int):
+def dedup_topk_ref(dists: torch.Tensor, ids: torch.Tensor, k: int, *, dups=None):
     """Exact replica-aware merge of a candidate pool.
 
     [Q,P] dists (non-finite = masked/invalid) × [Q,P] ids (<0 = padding) →
@@ -189,22 +189,31 @@ def dedup_topk_ref(dists: torch.Tensor, ids: torch.Tensor, k: int):
     most once per row, carrying its smallest distance; the output is ordered
     by (dist, id). Sort by dist, stable-sort by id (so per-id groups stay
     distance-ordered), kill adjacent duplicates, top-k the survivors.
+
+    Given ``dups`` (int64 [Q]), each row's duplicate count is written into
+    it from the same id sort, on the pool's device: the row's slots with an
+    id ≥ 0 less the distinct ids among them, whatever their distances (the
+    serve step's ``dedup_hits``).
     """
     d = dists.float()
     ids = ids.to(torch.int32)
     if d.shape[1] < k:  # degenerate pools: pad so the top-k is well-defined
         d = pad_dim(d, 1, k, torch.inf)
         ids = pad_dim(ids, 1, k, PAD_ID)
-    valid = (ids >= 0) & torch.isfinite(d)
-    ids = torch.where(valid, ids, ID_SENTINEL)
-    d = torch.where(valid, d, torch.inf)
+    d = torch.where((ids >= 0) & torch.isfinite(d), d, torch.inf)
+    # an id with only non-finite distances keeps its place in the id sort,
+    # for the count, and leaves with its inf distance
+    ids = torch.where(ids >= 0, ids, ID_SENTINEL)
     d1, o1 = torch.sort(d, dim=1, stable=True)
     i1 = torch.gather(ids, 1, o1)
     i2, o2 = torch.sort(i1, dim=1, stable=True)
     d2 = torch.gather(d1, 1, o2)
     first = torch.ones_like(i2, dtype=torch.bool)
     first[:, 1:] = i2[:, 1:] != i2[:, :-1]
-    d3 = torch.where(first & (i2 != ID_SENTINEL), d2, torch.inf)
+    real = i2 != ID_SENTINEL
+    if dups is not None:
+        dups.copy_(real.sum(1) - (first & real).sum(1))
+    d3 = torch.where(first & real, d2, torch.inf)
     out_d, pos = smallest_k(d3, k)
     out_i = torch.where(torch.isfinite(out_d), torch.gather(i2, 1, pos), PAD_ID)
     return out_d, out_i

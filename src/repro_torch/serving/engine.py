@@ -14,9 +14,10 @@ device) for its rows of the batch and its block of partitions:
   3. scan (serving/scan.py): ``kernels.l2_topk_qbuf`` per partition for the
      f32 tier; for the quantized tiers an ADC shortlist through
      ``kernels.pq_adc_topk_qbuf``, then an exact f32 rerank;
-  4. merge: scatter back per query, then the replica-aware
-     ``kernels.dedup_topk`` over each query's [b_loc·k] pool; over more than
-     one model rank, the ranks' lists gathered in rank order and merged by
+  4. merge: each query's dispatched lists gathered through a slot map into
+     its [nprobe_max·k] pool, then the replica-aware ``kernels.dedup_topk``,
+     which also counts the pool's duplicate ids; over more than one model
+     rank, the ranks' lists gathered in rank order and merged and counted by
      ``dedup_topk`` again (the reference's ``all_gather`` and ``psum``).
 
 The engine around it: a serve cache keyed like the reference's jit cache,
@@ -62,17 +63,6 @@ from repro_torch.utils.device import resolve_device
 # the dispatch sentinel query row: its ||q||² ≈ d·1e18 stays finite in f32,
 # and 1e9 stays finite when cast to a bfloat16 store
 _SENTINEL = 1e9
-
-
-def _dup_count(ids_pool: torch.Tensor) -> torch.Tensor:
-    """Duplicate id slots per candidate pool row ([nq, pool]): valid slots
-    (id ≥ 0) minus distinct ids, summed over queries — the replica-dedup hit
-    count the merge collapses."""
-    s = torch.sort(ids_pool, dim=1).values
-    valid = s >= 0
-    first = torch.ones_like(valid)
-    first[:, 1:] = s[:, 1:] != s[:, :-1]
-    return (valid.sum(1) - (valid & first).sum(1)).sum()
 
 
 @contextlib.contextmanager
@@ -181,7 +171,7 @@ def make_serve_step(cfg: LiraSystemConfig, n_queries: int, *, sigma: float, impl
     live rows of each partition summed over the partition's dispatched
     queries (a device scalar); ``pool_written``, the merge pool's entries
     those pairs' top-k fill (a device scalar); and ``pool_allocated``, the
-    entries the pool holds (an int).
+    entries the pool holds, ``q_row·nprobe_max·k`` (an int).
 
     The batch splits into ``bprod`` rows of ``q_row`` queries (the batch
     axes) and the partitions into ``model_n`` blocks of ``b_loc``; each rank
@@ -252,7 +242,7 @@ def make_serve_step(cfg: LiraSystemConfig, n_queries: int, *, sigma: float, impl
                 occ = (qbuf < q_row).sum(1)
                 _count(counts, "scan_pair_rows", (occ * _live_rows(block)).sum())
                 _count(counts, "pool_written", occ.sum() * k)
-                _count(counts, "pool_allocated", (q_row + 1) * b_loc * k)
+                _count(counts, "pool_allocated", q_row * pidx.shape[1] * k)
 
         # ---- per-partition scan
         with _stage(tracer, "lira.scan", rank=rank):
@@ -262,19 +252,24 @@ def make_serve_step(cfg: LiraSystemConfig, n_queries: int, *, sigma: float, impl
             scan_kw = tier.scan_kwargs(cfg, ctx, {n: block[n] for n in extra_fields})
             dists, rids = scan.run(impl, qbuf, q_pad, block["vectors"], ids_loc, k, **scan_kw)
 
-        # ---- scatter back per query (row q_row takes the empty slots), merge
+        # ---- merge: each query's dispatched lists only, gathered through the
+        # slot map: a probe's row of the scan's output (row·q_cap + col), or
+        # -1 where the probe was masked, is another rank's or overflowed
+        # q_cap. Those become (inf, -1): an empty qbuf slot's list is the
+        # sentinel query's, with finite distances and real ids.
         with _stage(tracer, "lira.merge", rank=rank):
-            out_d = torch.full((q_row + 1, b_loc, k), torch.inf, dtype=torch.float32,
-                               device=dev)
-            out_i = torch.full((q_row + 1, b_loc, k), -1, dtype=torch.int32, device=dev)
-            cols = torch.arange(b_loc, device=dev)[:, None].expand_as(qbuf)
-            qb = qbuf.long()
-            out_d[qb, cols] = dists
-            out_i[qb, cols] = rids
-            pool_d = out_d[:q_row].reshape(q_row, -1)
-            pool_i = out_i[:q_row].reshape(q_row, -1)
-            dedup_hits = _dup_count(pool_i)
-            loc_d, loc_i = kops.dedup_topk(pool_d, pool_i, k, impl=impl)
+            n_probe = pidx.shape[1]
+            slot = torch.empty_like(order)                           # order: every probe once
+            slot[order] = torch.where(keep, row * q_cap + col, -1)
+            miss = (slot < 0).view(q_row, n_probe, 1)
+            at = slot.clamp(min=0)
+            pool_d = torch.index_select(dists.reshape(-1, k), 0, at).view(q_row, n_probe, k)
+            pool_i = torch.index_select(rids.reshape(-1, k), 0, at).view(q_row, n_probe, k)
+            pool_d = pool_d.masked_fill_(miss, torch.inf).view(q_row, -1)
+            pool_i = pool_i.masked_fill_(miss, -1).view(q_row, -1)
+            dups = torch.empty(q_row, dtype=torch.int64, device=dev)
+            loc_d, loc_i = kops.dedup_topk(pool_d, pool_i, k, impl=impl, dups=dups)
+            dedup_hits = dups.sum()
         return loc_d, loc_i, probe_ok.sum(-1).float(), overflow, dedup_hits
 
     @torch.no_grad()
@@ -291,9 +286,10 @@ def make_serve_step(cfg: LiraSystemConfig, n_queries: int, *, sigma: float, impl
                 with _stage(tracer, "lira.merge", rank=0, ranks=model_n):
                     all_d = all_gather([r[0].to(dev0) for r in per], 1)
                     all_i = all_gather([r[1].to(dev0) for r in per], 1)
-                    dedup_hits = psum(r[4].to(dev0) for r in per) + _dup_count(all_i)
+                    dups = torch.empty(q_row, dtype=torch.int64, device=dev0)
+                    loc_d, loc_i = kops.dedup_topk(all_d, all_i, k, impl=impl, dups=dups)
+                    dedup_hits = psum(r[4].to(dev0) for r in per) + dups.sum()
                     overflow = psum(r[3].to(dev0) for r in per)
-                    loc_d, loc_i = kops.dedup_topk(all_d, all_i, k, impl=impl)
             outs.append((loc_d, loc_i, nprobe, overflow, dedup_hits))
         if len(outs) == 1:
             return outs[0]

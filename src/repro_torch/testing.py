@@ -100,7 +100,7 @@ def assert_topk_match(d_a, i_a, d_b, i_b, atol: float, *, exact_ids: bool = Fals
 L2_WIDTHS = {"small": dict(b=4, s=12, c=60, d=16, n_rows=20, k=7),
              "main": dict(b=8, s=16, c=300, d=128, n_rows=300, k=100)}
 DEDUP_WIDTHS = {"small": dict(q=6, p=64, n_ids=20, k=8),
-                "main": dict(q=8, p=102_400, n_ids=50_000, k=100)}
+                "main": dict(q=8, p=6_400, n_ids=3_200, k=100)}
 
 
 # The cases of every L2 scan that stress its selection (case -> overrides of
@@ -247,6 +247,31 @@ def dedup_case(case: str, *, width: str = "small", seed: int = 0):
         d[rng.random((q, p)) < 0.05] = np.nan
         d[rng.random((q, p)) < 0.05] = -np.inf
     return (d, ids), kw["k"]
+
+
+def dup_pool(p: int, *, q: int = 8, seed: int = 0):
+    """A merge pool with replicas for the duplicate count: (dists [q, p] f32,
+    ids [q, p] int32) as numpy. Ids repeat (a third as many as entries), a
+    fifth are padding, some distances are non-finite; of the last three
+    rows, one holds only padding, one three valid entries (k above the valid
+    count), and one ids whose every distance is non-finite (counted, never
+    returned)."""
+    rng = np.random.default_rng(seed)
+    d = (rng.random((q, p)) * 10).astype(np.float32)
+    ids = rng.integers(0, max(2, p // 3), (q, p)).astype(np.int32)
+    ids[rng.random((q, p)) < 0.2] = -1
+    d[rng.random((q, p)) < 0.05] = np.inf
+    d[rng.random((q, p)) < 0.02] = np.nan
+    d[rng.random((q, p)) < 0.02] = -np.inf
+    ids[-1] = -1
+    ids[-2, 3:] = -1
+    d[-3, ::2], d[-3, 1::2] = np.inf, np.nan
+    return d, ids
+
+
+def dup_count_np(ids: np.ndarray) -> np.ndarray:
+    """Per row: the entries with an id >= 0 less the distinct ids among them."""
+    return np.array([int((r >= 0).sum()) - len(np.unique(r[r >= 0])) for r in ids], np.int64)
 
 
 # "small" runs in the CPU tests; "main" is the quantized serve path's width

@@ -61,6 +61,77 @@ def test_dedup_topk_kernel_matches_plain(cuda_device, case):
     assert torch.equal(kd, pd) and torch.equal(ki, pi)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 10, 100, 300])
+@pytest.mark.parametrize("width", [400, 6400, 16384, 19200, 102400])
+def test_dedup_topk_kernel_counts_duplicates(cuda_device, width, k):
+    """Answers and duplicate counts equal the plain version's at the
+    cross-rank merge's width, the serve step's (64 probes of 100), a power of
+    two, and rows whose hash table is too large for shared memory (64 probes
+    of 300, the dense pool of 1,024 partitions of 100), which the kernel
+    keeps in a global workspace; past 256 best keys (k 300) they are sorted
+    rather than ranked."""
+    p = width
+    d, ids = (torch.from_numpy(a).to(cuda_device) for a in rt.dup_pool(p, seed=p + k))
+    assert (dd_mod.workspace_slots(d.shape[0], p, k) > 0) == (p > 19_000)
+    dups = torch.full((d.shape[0],), -7, dtype=torch.int64, device=cuda_device)
+    before = dd_mod.launches
+    kd, ki = dd_mod.dedup_topk(d, ids, k, dups=dups)
+    torch.cuda.synchronize()
+    assert dd_mod.launches == before + 1
+    want = torch.full_like(dups, -7)
+    pd, pi = tref.dedup_topk_ref(d, ids, k, dups=want)
+    assert torch.equal(kd, pd) and torch.equal(ki, pi) and torch.equal(dups, want)
+    assert dups.cpu().tolist() == rt.dup_count_np(ids.cpu().numpy()).tolist()
+    kd, ki = dd_mod.dedup_topk(d, ids, k)
+    assert torch.equal(kd, pd) and torch.equal(ki, pi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [4096, 16384, 102400])
+def test_dedup_topk_kernel_on_rows_of_distinct_ids(cuda_device, width):
+    """Every entry valid and every id distinct, so the hash table is as full
+    as it gets, at powers of two and past shared memory: the plain
+    version's answers, and no duplicates."""
+    g = torch.Generator().manual_seed(width)
+    q = 4
+    ids = torch.stack([torch.randperm(4 * width, generator=g)[:width] for _ in range(q)])
+    d = torch.rand((q, width), generator=g)
+    d, ids = d.to(cuda_device), ids.to(torch.int32).to(cuda_device)
+    dups = torch.full((q,), -7, dtype=torch.int64, device=cuda_device)
+    kd, ki = dd_mod.dedup_topk(d, ids, 100, dups=dups)
+    pd, pi = tref.dedup_topk_ref(d, ids, 100)
+    assert torch.equal(kd, pd) and torch.equal(ki, pi)
+    assert dups.cpu().tolist() == [0] * q
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_partitions, nprobe_max, k", [(64, 64, 300), (2048, None, 100)],
+                         ids=["k300-over-64-probes", "default-2048-partitions"])
+def test_serve_step_merges_pools_past_shared_memory(cuda_device, n_partitions, nprobe_max, k):
+    """Merge pools too wide for a shared-memory table: a request's k = 300
+    over 64 probes (19,200 entries a row), and a build of 2,048 partitions
+    with the default nprobe_max (256 probes of 100, 25,600). The kernels'
+    answers, overflow and dedup_hits equal the plain path's."""
+    from repro_torch.data.synthetic import make_vector_dataset
+    from repro_torch.serving.api import BuildConfig
+    from repro_torch.serving.engine import LiraEngine
+
+    ds = make_vector_dataset(n=20_000, n_queries=37, dim=32, n_modes=24, seed=8)
+    bc = BuildConfig(n_partitions=n_partitions, nprobe_max=nprobe_max, epochs=2)
+    eng = LiraEngine.build(ds.base, bc, device=cuda_device)
+    pool = eng.cfg.nprobe_max * k
+    assert pool > 19_000 and dd_mod.workspace_slots(len(ds.queries), pool, k) > 0
+    before = dd_mod.launches
+    got = eng.search(ds.queries, sigma=-1.0, k=k, impl="cuda")
+    assert dd_mod.launches - before == 1
+    ref = eng.search(ds.queries, sigma=-1.0, k=k, impl="ref")
+    atol = rt.l2_atol(ds.queries, eng.store["vectors"], eng.store["ids"])
+    rt.assert_topk_match(got.dists, got.ids, ref.dists, ref.ids, atol, what=f"k={k}")
+    assert (got.overflow, got.stats.dedup_hits) == (ref.overflow, ref.stats.dedup_hits)
+    assert got.stats.dedup_hits > 0
+
+
 def _adc_inputs(case, dev, seed):
     (lut_pad, qbuf, codes, ids, coff, qoff), k, _ = rt.adc_case(case, seed=seed)
     args = [torch.from_numpy(a).to(dev) for a in (lut_pad, qbuf, codes, ids)]

@@ -143,9 +143,9 @@ def _recount(monkeypatch, eng, q, sigma):
     q_row = seen[0][1]
     occ = (qbuf < q_row).sum(1)
     live = eng.store["occupancy"].numpy().sum(1)
-    b_loc = qbuf.shape[0] // len(seen)
+    nprobe = min(eng.cfg.nprobe_max, eng.cfg.n_partitions)
     return res, {"pairs": int((occ * live).sum()), "written": int(occ.sum()) * eng.cfg.k,
-                 "allocated": len(seen) * (q_row + 1) * b_loc * eng.cfg.k}
+                 "allocated": len(seen) * q_row * nprobe * eng.cfg.k}
 
 
 @pytest.mark.parametrize("sigma", [-1.0, 0.5])
