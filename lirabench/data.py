@@ -18,12 +18,24 @@ Both on the run's device, in the shuffled order of these parts:
   * a uniform background (``noise_frac``) over the centres' range.
 The queries come from the same process as the base and are held out from it.
 
+``dtype`` (optional, ``"float32"`` where absent) is the element type the
+deployment hands the engine. ``"uint8"`` and ``"int8"`` map the f32 draw
+above linearly onto [0, 255] or [-128, 127], rounded and clamped, as a
+BIGANN or SPACEV user's vectors are bytes. The mapping comes from the
+mixture alone, so the base and the queries share it: the span from the
+lowest to the highest of every mode's centre less and plus three of its
+scales, over all modes and dimensions, goes onto the type's 256 values. The reference and
+the judge read such rows in f32 (``reference.as_f32``, which bounds the
+width at which that is exact).
+
 The same seed on the same device and torch build gives the same bytes.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+INT_RANGE = {"uint8": (0, 255), "int8": (-128, 127)}
 
 
 def _gamma2(shape, generator, device):
@@ -81,14 +93,38 @@ def _draw(spec: dict, mix: dict, total: int, g, device) -> torch.Tensor:
     return x[torch.randperm(total, generator=g, device=device)]
 
 
+def int_mapping(spec: dict, mix: dict):
+    """(dtype, scale, offset, lo, hi) that take the f32 draw to the spec's
+    integer ``dtype`` as ``clamp(round(x * scale + offset), lo, hi)``, or
+    None for float32. ``mix`` is ``mixture(spec)``."""
+    name = spec.get("dtype", "float32")
+    if name == "float32":
+        return None
+    if name not in INT_RANGE:
+        raise ValueError(f"dtype {name!r}: float32, uint8 or int8")
+    lo, hi = INT_RANGE[name]
+    reach = 3.0 * mix["scales"]
+    x_lo = float((mix["centers"] - reach).min())
+    x_hi = float((mix["centers"] + reach).max())
+    scale = (hi - lo) / (x_hi - x_lo)
+    return getattr(torch, name), scale, lo - x_lo * scale, lo, hi
+
+
 def make_vectors(spec: dict, n: int, n_queries: int, device) -> tuple:
-    """(base [n, dim], queries [n_queries, dim]) f32 on ``device``: the base
-    from ``spec['data_seed']``, the queries from ``spec['query_seed']``."""
+    """(base [n, dim], queries [n_queries, dim]) on ``device`` in the spec's
+    ``dtype``: the base from ``spec['data_seed']``, the queries from
+    ``spec['query_seed']``."""
     device = torch.device(device)
-    mix = {k: v.to(device) for k, v in mixture(spec).items()}
+    mix = mixture(spec)
+    to_int = int_mapping(spec, mix)
+    mix = {k: v.to(device) for k, v in mix.items()}
     out = []
     for count, s, part in ((n, spec["data_seed"], 0), (n_queries, spec["query_seed"], 1)):
         g = torch.Generator(device=device)
         g.manual_seed(int(np.random.SeedSequence([int(s), part]).generate_state(1, np.uint64)[0]))
-        out.append(_draw(spec, mix, count, g, device))
+        x = _draw(spec, mix, count, g, device)
+        if to_int is not None:
+            dtype, scale, offset, lo, hi = to_int
+            x = x.mul_(scale).add_(offset).round_().clamp_(lo, hi).to(dtype)
+        out.append(x)
     return out[0], out[1]

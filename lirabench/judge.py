@@ -6,13 +6,18 @@ after the system under test has been freed:
   * ``recall``: recall@k against the exact top-k over a sample of the
     answered rows drawn from the run's seed (``sample`` rows, or every row
     of a smaller window), a missing id (-1) counting as a miss. Probing,
-    dispatch, the scan and the merge all decide it.
+    dispatch, the scan and the merge all decide it. On 8-bit integer
+    vectors, where distances tie often and are exact, a returned id counts
+    when its distance is at most the exact k-th (as BIG-ANN counts ties).
   * ``dist_gap``: the widest gap, over every returned (query, id), between
     the distance the system reports and the exact f32 distance from that
     query to that id, as a share of ||q||² + ||x||² (the scale of the
     rounding of the L2 expansion). An id or a distance altered where it is
     produced, a row handed back to the wrong request, or the vectors served
-    at a lower precision than the configuration states all widen it.
+    at a lower precision than the configuration states all widen it. On
+    8-bit integer vectors the exact distances are whole numbers that an
+    exact system reports to the bit, so an integer configuration may hold
+    ``dist_gap`` to 0.
   * ``dup_ids``: answered rows holding one id twice (the merge collapses
     replicas); ``unsorted``: rows whose distances are not ascending;
     ``bad_ids``: ids outside the base; ``unanswered``: queries due in the
@@ -59,13 +64,21 @@ def judge(answers: Answers, base: torch.Tensor, pool: torch.Tensor, *, k: int,
     hits = 0.0
     if rows:
         used, where = np.unique(answers.pool[pick], return_inverse=True)
-        _, gt = reference.exact_topk(base, pool[torch.as_tensor(used, device=dev)], k)
-        gt = gt[torch.as_tensor(where.reshape(-1), device=dev)]
+        queries = pool[torch.as_tensor(used, device=dev)]
+        gt_d, gt = reference.exact_topk(base, queries, k)
+        at = torch.as_tensor(where.reshape(-1), device=dev)
         ids = torch.as_tensor(answers.ids[pick], device=dev).long()
         ids = torch.where((ids >= n) | (ids < 0), -1, ids)
-        hits = float(((ids[:, :, None] == gt[:, None, :]) & (ids >= 0)[:, :, None]).any(-1).sum())
-        del ids, gt
-    b2 = (base * base).sum(-1)
+        if base.is_floating_point():
+            gt = gt[at]
+            hit = ((ids[:, :, None] == gt[:, None, :]) & (ids >= 0)[:, :, None]).any(-1)
+        else:
+            # exact distances: a row at the k-th distance or nearer is one of
+            # the k nearest, whichever of the tied rows it is
+            hit = reference.pair_dists(base, queries[at], ids) <= gt_d[at, k - 1:]
+        hits = float(hit.sum())
+        del ids, gt, gt_d, hit
+    b2 = reference.sq_norms(base)
     gap = 0.0
     dup = unsorted = bad = 0
     for p, ids, dists in _rows(answers, block):
@@ -75,9 +88,13 @@ def judge(answers: Answers, base: torch.Tensor, pool: torch.Tensor, *, k: int,
         bad += int(((ids >= n) | (ids < -1)).sum())
         ids = torch.where(ids >= n, -1, ids)
         valid = ids >= 0
-        q = pool[p]
+        q = reference.as_f32(pool[p])
         exact = reference.pair_dists(base, q, ids)
         scale = (q * q).sum(-1)[:, None] + b2[ids.clamp_min(0)]
+        if not base.is_floating_point():
+            # a whole number, 0 only where the distance is 0 too: 1 there,
+            # so that 0 / 0 does not read as NaN
+            scale = scale.clamp_min(1.0)
         rel = torch.where(valid, (dists - exact).abs() / scale, 0.0)
         # a NaN or an infinite distance on a valid id is as wrong as it gets
         rel = torch.where(valid & ~torch.isfinite(dists), torch.inf, rel)

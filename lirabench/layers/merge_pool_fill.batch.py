@@ -1,7 +1,7 @@
 """merge_pool_fill.batch: the share of the merge pool's entries that hold a
 candidate: the program's ``lira_engine_merge_pool_entries_total`` written
-(each dispatched pair's top-k) over allocated (``[q_row + 1, B, k]`` a
-call), over the window."""
+(each dispatched pair's top-k) over allocated (the compact pool,
+``[q_row, nprobe_max·k]`` a call), over the window."""
 from lirabench import program
 
 

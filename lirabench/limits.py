@@ -8,12 +8,18 @@ named cell of its configuration on it, one after another.
         --seeds 11 12 ... --control-seeds 21 22 23 --fault-seeds 31 32 33 \\
         --seconds 10 --out limits.jsonl
 
-The control is the configuration served from a bfloat16 vector store
-(``store_dtype`` "bfloat16"), the precision a later change would be tempted
-to take, on an index of its own; the fault leaves out the second half of
-every batch where the merge produces it. Both have to come out as not
-correct. One JSON line a (seed, side, cell) goes to ``--out`` and to
-standard output, with the window's rate and the profile of its calls.
+The control is the configuration served at the precision a later change
+would be tempted to take, on an index of its own: the overrides that the
+configuration file names under ``control`` (merged into its keys as a
+cell's overrides are), or else ``CONTROL``, a bfloat16 vector store
+(``store_dtype`` "bfloat16"). bfloat16 holds every integer up to 256
+exactly, so on 8-bit integer vectors that store loses nothing and cannot
+fail: an integer configuration has to name a control of its own, and
+``control_of`` refuses one that does not. The fault
+leaves out the second half of every batch where the merge produces it.
+Both have to come out as not correct. One JSON line a (seed, side, cell)
+goes to ``--out`` and to standard output, with the window's rate and the
+profile of its calls.
 """
 from __future__ import annotations
 
@@ -30,6 +36,19 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 from lirabench import run  # noqa: E402
 
 CONTROL = {"build": {"store_dtype": "bfloat16"}}
+
+
+def control_of(config: dict) -> dict:
+    """The overrides that make a configuration its control. They change the
+    system served, never the vectors the reference judges it on. An integer
+    configuration has to name its own: ``CONTROL`` cannot fail on it."""
+    if "control" not in config and config["data"].get("dtype", "float32") != "float32":
+        raise ValueError(f"a {config['data']['dtype']} configuration names its own control: "
+                         "the bfloat16 store holds every 8-bit value exactly")
+    control = config.get("control", CONTROL)
+    if "data" in control:
+        raise ValueError("a control changes the system served, not the data")
+    return control
 
 
 def half_left_out():
@@ -53,7 +72,9 @@ def readings(cells: list, runs: list, seconds: float, dev, control: bool):
     """``runs``: (side, seed) pairs driven in turn on one index."""
     import torch
 
-    loaded = [run.Cell.load(run.ROOT, c, CONTROL if control else None) for c in cells]
+    loaded = [run.Cell.load(run.ROOT, c) for c in cells]
+    if control:
+        loaded = [run.Cell.load(run.ROOT, c.name, control_of(c.config)) for c in loaded]
     if len({json.dumps(c.config, sort_keys=True) for c in loaded}) != 1:
         raise SystemExit("the cells must share one configuration")
     t0 = time.perf_counter()
@@ -66,7 +87,7 @@ def readings(cells: list, runs: list, seconds: float, dev, control: bool):
         wins = []
         for cell in loaded:
             mode = run.traffic(cell, pool, seed)
-            run.prepare(cell, engine, mode, False)
+            run.prepare(cell, engine, mode, False, seconds)
             if side == "fault":
                 install()
             try:

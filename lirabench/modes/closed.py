@@ -5,13 +5,20 @@ warm-up has allocated and touched, and lets each call's own result go, as a
 caller that consumes its answers does. Kept as they come, the results would
 take fresh pages every call, and faulting them in cost the engine's copy back
 to the host 8.2 ms a call instead of 1.5 (lira-ann.batch8k on an H100): the
-first window of every process read 7% below later ones."""
+first window of every process read 7% below later ones. A room of one
+stream's answers (256 calls) left that cost on every call past the 256th,
+25-30 ms a call against ~20, so warm-up makes room for ``ROOM`` times the
+calls that the window's seconds hold at the fastest warm-up call's pace; a
+window that outruns the room keeps the rest as they come.
+"""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
 from lirabench.window import CLOCK, Window, zipf_rows
+
+ROOM = 1.3
 
 
 class Mode:
@@ -43,17 +50,22 @@ class Mode:
         at = (start + lap * (self.rows // 2 + 1) + np.arange(self.rows)) % n
         return self.idx[at], self.stream[at]
 
-    def warm(self, engine) -> None:
+    def warm(self, engine, seconds: float) -> None:
         n = len(self.idx)
+        call_s = []
         for j in range(self.warm_calls):
+            t = CLOCK()
             res = engine.search(self.stream[n - (j + 1) * self.rows: n - j * self.rows])
-        # room for a whole stream's answers, touched now so the window finds it faulted in
-        self.kept_ids = np.ones((n, res.ids.shape[1]), res.ids.dtype)
-        self.kept_dists = np.ones((n, res.dists.shape[1]), res.dists.dtype)
+            call_s.append(CLOCK() - t)
+        # the first call builds the step; the others pace the window
+        pace = min(call_s[1:] or call_s)
+        rows = self.rows * (int(ROOM * seconds / pace) + 1)
+        # room for the window's answers, touched now so the window finds it faulted in
+        self.kept_ids = np.ones((rows, res.ids.shape[1]), res.ids.dtype)
+        self.kept_dists = np.ones((rows, res.dists.shape[1]), res.dists.dtype)
 
     def keep(self, w: Window, res) -> None:
-        """Keep a call's answers for the judge (past the stream's length, as
-        they come)."""
+        """Keep a call's answers for the judge (past the room, as they come)."""
         r0, r1 = w.rows, w.rows + len(res.ids)
         if r1 <= len(self.kept_ids):
             self.kept_ids[r0:r1] = res.ids

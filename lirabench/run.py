@@ -143,9 +143,10 @@ def build(cell: Cell, base, dev):
     return engine
 
 
-def prepare(cell: Cell, engine, mode, trace: bool):
-    """The traffic's shapes warmed up; with ``trace`` the per-layer readers'
-    hooks go in first. Returns (readers, hooks)."""
+def prepare(cell: Cell, engine, mode, trace: bool, seconds: float):
+    """The traffic's shapes warmed up for a window of ``seconds``; with
+    ``trace`` the per-layer readers' hooks go in first. Returns (readers,
+    hooks)."""
     from lirabench import capture
 
     readers = hooks = None
@@ -155,7 +156,7 @@ def prepare(cell: Cell, engine, mode, trace: bool):
         for r in readers.values():
             if hasattr(r, "install"):
                 r.install(hooks)
-    mode.warm(engine)
+    mode.warm(engine, seconds)
     return readers, hooks
 
 
@@ -270,7 +271,7 @@ def run_cell(root, workload: str, seed: int, seconds: float, trace: bool, *, dev
     if cuda:
         torch.cuda.synchronize(dev)
     t2 = time.perf_counter()
-    readers, hooks = prepare(cell, engine, mode, trace)
+    readers, hooks = prepare(cell, engine, mode, trace, seconds)
     if cuda:
         torch.cuda.synchronize(dev)
     setup_s = time.perf_counter() - T_START

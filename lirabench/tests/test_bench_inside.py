@@ -119,5 +119,6 @@ def test_a_traced_toy_run_reports_the_program_counters(toy_root):
     assert "kernel_build_s" not in got
     values = {n: m["value"] for n, m in res["metrics"].items()}
     assert all(values[f"build_{s}_s"] > 0 for s in STAGES)
-    assert 0 < values["merge_pool_fill.batch"] < 1
+    # the toy probes every partition without overflow: its compact pool is full
+    assert 0 < values["merge_pool_fill.batch"] <= 1
     assert values["scan_rows_per_query.batch"] > 0

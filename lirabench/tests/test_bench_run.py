@@ -31,10 +31,13 @@ def test_untraced_run_reports_its_end_to_end_metrics(toy_root):
 
 def test_traced_run_reports_what_the_cpu_can_read(toy_root):
     """Without a card no device time is read, so the device-trace metrics are
-    left out, never reported as 0."""
+    left out, never reported as 0; the spans and counters the CPU run reads
+    are the program's to add."""
     res = _result(toy_root, "toy.batch", True)
     assert res["correct"] is True, res["checks"]
-    assert set(res["metrics"]) == {"host_ms.batch", "nprobe_mean.batch", "overflow_share.batch"}
+    bench = json.loads((toy_root / "BENCHMARK.json").read_text())
+    source = {m["name"]: m["source"] for m in bench["per_layer"]}
+    assert res["metrics"] and not {n for n in res["metrics"] if source[n] == "device_trace"}
     assert "busy_s" not in res["device"] and "breakdown" not in res
 
 
@@ -69,8 +72,11 @@ def test_same_seed_same_inputs(rows):
     assert len(set(batches)) == 12
 
 
-def test_main_refuses_without_a_card(capsys):
+def test_main_refuses_without_a_card(capsys, monkeypatch):
     """On a machine without CUDA the command prints no result and fails."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     rc = run.main(["--workload", "lira-ann.batch8k", "--seed", str(SEED), "--seconds", "1",
                    "--trace", "0"])
     assert rc != 0

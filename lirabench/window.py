@@ -2,7 +2,8 @@
 ``lirabench/traffic/<mix>.json``; its ``mode`` names the generator that reads
 it, ``lirabench/modes/<mode>.py``, whose ``Mode(mix, pool, seed)`` draws the
 mix's requests from the seed over the configuration's query pool (a tensor
-on the run's device), ``warm(engine)`` warms up the shapes they use, and
+on the run's device), ``warm(engine, seconds)`` warms up the shapes they use
+and whatever a window of ``seconds`` needs ready, and
 ``run(engine, seconds, tracer)`` drives the measured window and returns a
 ``Window``.
 
