@@ -297,11 +297,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                LAST_DRYRUN_BAND of the card's torch.cuda.max_memory_allocated
                from those phases, its counted FLOPs beside model_flops and
                the phases' own bound models.
+ 26. u8      — after 14, on a freed card, before 16: the u8 tier at
+               bigann-u8's deployment (lirabench/configs/bigann-u8.json, the
+               file the benchmark's cell runs: 4,000,000 uint8 rows of the
+               SIFT-shaped mixture at d 128, B 1,024, k 100), built on the
+               card; one batch of 8,192 uint8 queries through search() with
+               the launch counters zeroed just before: l2u8_topk_qbuf and
+               dedup_topk launched once, the f32 scan not at all; every
+               returned distance the integer sum of squares of its row;
+               recall@100 (a row at the exact 100th distance or nearer
+               counts) at least the configuration's limit; the byte scan on
+               the batch's operands equal bit for bit to its plain version
+               (int64) on the occupied slots, inf / -1 on the empty ones, and
+               to the f32 scan over the rows cast to f32; timed beside its
+               bound at the INT8 tensor-core rate and with every slot empty.
 Phases 20-24 launch none of the kernels: the LM's attention is the
 reference's plain block scan, its loss and optimizer plain XLA, the recsys
 family's embedding bag a gather and sum and DimeNet's message passing
 segment sums, and no Pallas kernel lies on their path.
-Phases 7-12, 15-17 and 25 zero the launch counters just before each path and
+Phases 7-12, 15-17, 25 and 26 zero the launch counters just before each path and
 read them just after. Every matmul runs in full f32 (TF32 off for matmul and cuDNN),
 so the plain versions are exact oracles.
 The line before the last is the kernels JSON; the last line is
@@ -321,6 +335,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # phase 18 runs cuBLAS under deterministic algorithms, which needs its
 # workspace fixed before CUDA starts
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+# the plain versions' [B, S, C] distances and their sort come and go in
+# blocks of 10-20 GB beside the stores; growable segments keep the freed
+# blocks from fragmenting the card's memory
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 N_BASE, N_PQ_BASE, N_QUERIES, BATCH = 1_000_000, 100_000, 10_000, 1_000
@@ -332,7 +350,8 @@ SM_CLOCK_HZ = 1.98e9                    # the clock behind the 67 TFLOP/s f32 pe
 SMEM_WORDS_PER_CLOCK = 32               # shared memory: 32 banks of 4 bytes an SM
 PEAK_OPS = {"float32": 67e12,           # f32 on the CUDA cores
             "tf32": 495e12,             # dense TF32 tensor-core rate
-            "bfloat16": 989e12}         # dense bf16 tensor-core rate
+            "bfloat16": 989e12,         # dense bf16 tensor-core rate
+            "int8": 1979e12}            # dense INT8 tensor-core rate
 
 
 def log(msg: str) -> None:
@@ -1441,6 +1460,159 @@ def churn_phase(eng, ds, counters, smi) -> None:
         f"{k} {sum(v):.3f} (x{len(v)})" for k, v in walls.items())
         + f"; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"{smi}; phase {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------- the byte tier
+
+U8_CONFIG = "lirabench/configs/bigann-u8.json"   # the deployment the benchmark's cell runs
+U8_BATCH = 8_192                                 # one call of its batch8k traffic
+
+
+def u8_bound(q_pad, qbuf, cands, cand_ids, k):
+    """Least time for this run's byte scan: each input read once (the query
+    plane, qbuf, and of every partition with an occupied slot its valid
+    rows at d bytes, their int32 ||x||² and ids), each output written once;
+    2·d integer operations per (occupied slot, valid candidate), at the
+    INT8 tensor-core rate."""
+    from repro_torch import testing as rt
+
+    occ = rt.occupied(q_pad, qbuf).sum(1).double()
+    valid = (cand_ids >= 0).sum(1).double()
+    d = cands.shape[2]
+    nbytes = (q_pad.numel() + qbuf.numel() * 4 + float((valid[occ > 0] * (d + 8)).sum())
+              + qbuf.numel() * k * 8)
+    return nbytes, float((occ * valid).sum()) * 2 * d, PEAK_OPS["int8"]
+
+
+def u8_phase(smi, dev="cuda") -> dict:
+    """Phase 26: the u8 tier at bigann-u8's deployment (the configuration
+    file the benchmark's cell runs: 4,000,000 uint8 rows at d 128, B 1,024,
+    k 100), built on the card. One batch of 8,192 uint8 queries through
+    search() with the launch counters zeroed just before: one launch of
+    l2u8_topk_qbuf and of dedup_topk, none of the f32 scan; every returned
+    distance equal to the integer Σ(q − x)² of its row, and recall@100
+    (a row at the exact 100th distance or nearer counts) at least the
+    configuration's limit. The byte scan on the operands the batch gave it:
+    equal bit for bit to its plain version (int64 arithmetic) on every
+    occupied slot, inf / -1 on the others, and to the f32 scan over the rows
+    cast to f32; timed beside its bound, with every slot empty, and its
+    registers. Returns its entry of the kernels JSON."""
+    import numpy as np
+    import torch
+
+    from lirabench import data as bench_data
+    from repro_torch.core import ground_truth as gt
+    from repro_torch.kernels import dedup_topk as dd_mod, l2_topk as l2_mod
+    from repro_torch.kernels import l2u8_topk as u8_mod
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.serving.api import BuildConfig
+    from repro_torch.serving.engine import LiraEngine
+
+    t_phase = time.perf_counter()
+    with open(os.path.join(ROOT, U8_CONFIG)) as f:
+        config = json.load(f)
+    n = int(config["n_points"])
+    base, queries = bench_data.make_vectors(config["data"], n, U8_BATCH, dev)
+    t0 = time.perf_counter()
+    eng = LiraEngine.build(base, BuildConfig(**config["build"]), device=dev)
+    torch.cuda.synchronize()
+    log(f"u8     build over {n} uint8 rows {time.perf_counter() - t0:.1f} s | capacity "
+        f"{eng.cfg.capacity} | store " + ", ".join(
+            f"{name} {t.numel() * t.element_size() / 2**30:.3f} GiB {t.dtype}"
+            for name, t in eng.store.items()) + f" | {eng.cfg}")
+    q_np = queries.cpu().numpy()
+    captured = {}
+    inner = kops.l2u8_topk_qbuf
+
+    def capture(*args, **kw):
+        captured.setdefault("args", args)
+        return inner(*args, **kw)
+
+    counters = {"l2u8_topk_qbuf": u8_mod, "l2_topk_qbuf": l2_mod, "dedup_topk": dd_mod}
+    eng.search(q_np)             # the batch's serve step built before the counted call
+    kops.l2u8_topk_qbuf = capture
+    try:
+        for mod in counters.values():
+            mod.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.search(q_np)
+        call_ms = 1e3 * (time.perf_counter() - t0)
+        launches = {name: mod.launches for name, mod in counters.items()}
+    finally:
+        kops.l2u8_topk_qbuf = inner
+    if launches != {"l2u8_topk_qbuf": 1, "l2_topk_qbuf": 0, "dedup_topk": 1}:
+        raise AssertionError(f"u8 batch: launches {launches}")
+    if res.stats.tier != "u8":
+        raise AssertionError(f"u8 batch served by tier {res.stats.tier}")
+    log(f"u8     one batch of {len(q_np)} uint8 queries in {call_ms:.1f} ms (tier "
+        f"{res.stats.tier}, impl {res.stats.impl}, mean nprobe_eff "
+        f"{float(res.nprobe_eff.mean()):.3f}, overflow {res.overflow}); launches {launches}")
+    # every returned distance is its row's integer sum of squares
+    ids = torch.as_tensor(res.ids, device=dev).long()
+    got = torch.as_tensor(res.dists, device=dev)
+    if not bool((ids >= 0).all()):
+        raise AssertionError("u8 batch: a row has fewer than k answers")
+    exact = torch.cat([((queries[s:s + 256, None, :].int() - base[ids[s:s + 256]].int()) ** 2)
+                       .sum(-1) for s in range(0, len(q_np), 256)])
+    if not torch.equal(got, exact.float()):
+        bad = int((got != exact.float()).sum())
+        raise AssertionError(f"u8 batch: {bad} returned distances differ from Σ(q − x)²")
+    # recall against the exact k-th distance (f32 with TF32 off is exact on bytes at d 128)
+    kth, _ = gt.exact_knn(queries, base, eng.cfg.k, batch=256, device=torch.device(dev))
+    recall = float((res.dists <= kth[:, -1:]).mean())
+    floor = float(config["checks"]["recall"])
+    log(f"u8     every returned distance equals the integer sum of squares; recall@100 "
+        f"{recall:.4f} against the exact 100th distance (the configuration's limit {floor})")
+    if recall < floor:
+        raise AssertionError(f"u8 recall@100 {recall:.4f} < {floor}")
+    del res, ids, got, exact, kth
+    # the kernel on the batch's operands
+    q_pad, qbuf, cands, sqn, cid, k = captured.pop("args")
+    occ = qbuf < q_pad.shape[0] - 1
+    kd, ki = u8_mod.l2u8_topk_qbuf(q_pad, qbuf, cands, sqn, cid, k)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pd, pi = kref.l2u8_topk_qbuf_ref(q_pad, qbuf, cands, sqn, cid, k)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    if not (torch.equal(kd[occ], pd[occ]) and torch.equal(ki[occ], pi[occ])
+            and bool(torch.isinf(kd[~occ]).all()) and bool((ki[~occ] == -1).all())):
+        raise AssertionError("l2u8_topk_qbuf at the u8 batch's operands differs from its "
+                             "plain version")
+    del pd, pi
+    ms = time_ms(lambda: u8_mod.l2u8_topk_qbuf(q_pad, qbuf, cands, sqn, cid, k), 20)
+    bound = bound_entry(*u8_bound(q_pad, qbuf, cands, cid, k))
+    qb_empty = torch.full_like(qbuf, q_pad.shape[0] - 1)
+    ms_empty = time_ms(lambda: u8_mod.l2u8_topk_qbuf(q_pad, qb_empty, cands, sqn, cid, k), 10)
+    del qb_empty
+    pairs = float((occ.sum(1).double() * (cid >= 0).sum(1).double()).sum())
+    regs = ptxas_report("l2u8_topk_qbuf", "l2u8_topk_qbuf_kernel")
+    log(f"kernel l2u8_topk_qbuf at the u8 batch's operands (B {qbuf.shape[0]}, S "
+        f"{qbuf.shape[1]}, C {cands.shape[1]}, d {cands.shape[2]}, k {k}, {int(occ.sum())} "
+        f"occupied slots, {pairs:.4g} pairs): equal bit for bit to its plain version; "
+        f"{ms:.3f} ms (plain {plain_ms:.1f} ms, bound {bound[0]:.3f} ms by {bound[1]}); every "
+        f"slot empty {ms_empty:.3f} ms; {regs}")
+    # the f32 scan over the same rows cast: an independent kernel, the same bits
+    qf, cf = q_pad.float(), cands.float()
+    f32_ms = time_ms(lambda: l2_mod.l2_topk_qbuf(qf, qbuf, cf, cid, k), 5)
+    fd, fi = l2_mod.l2_topk_qbuf(qf, qbuf, cf, cid, k)
+    if not (torch.equal(fd[occ], kd[occ]) and torch.equal(fi[occ], ki[occ])):
+        raise AssertionError("l2u8_topk_qbuf differs from the f32 scan over the rows cast")
+    log(f"kernel l2_topk_qbuf over the same rows cast to f32: equal bit for bit, {f32_ms:.3f} ms")
+    del qf, cf, fd, fi, kd, ki
+    entry = kernel_entry(
+        "l2u8_topk_qbuf", "l2u8_topk_qbuf.cu", None, launches["l2u8_topk_qbuf"], 0.0, ms,
+        plain_ms, bound,
+        {"q_pad": list(q_pad.shape), "qbuf": list(qbuf.shape), "cands": list(cands.shape),
+         "k": k, "occupied_slots": int(occ.sum()), "pairs": pairs, "all_empty_ms": ms_empty,
+         "registers": regs, "f32_scan_ms": f32_ms, "recall_at_100": recall,
+         "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+    del q_pad, qbuf, cands, sqn, cid, captured, eng, base, queries
+    torch.cuda.empty_cache()
+    log(f"u8     phase {time.perf_counter() - t_phase:.1f} s | {smi}")
+    return entry
 
 
 # ---------------------------------------------------------------- mesh and cluster
@@ -4497,6 +4669,7 @@ def main(n_base: int = N_BASE, n_queries: int = N_QUERIES) -> int:
     churn_phase(eng, ds, counters, smi)
     del eng
     torch.cuda.empty_cache()
+    kernels.append(u8_phase(smi))
     clustered = cluster_phase(ds, counters, gti, recall, smi)
     examples_phase()
     lm_phase(smi)

@@ -3,7 +3,8 @@ of ``repro/core/partitions.py``.
 
 Inverted lists are a dense ``[B, capacity, d]`` tensor plus per-partition
 counts. Rows beyond ``count`` are padding (id = -1, vector = 1e6 so they
-never win a top-k). A store may also carry a mini-IVF inside every partition
+never win a top-k; 0 in an integer plane, where the id alone masks them). A
+store may also carry a mini-IVF inside every partition
 (``attach_internal_index``): the two-level index.
 """
 from __future__ import annotations
@@ -23,7 +24,7 @@ _SUB_BLOCK = 1 << 28
 
 class PartitionStore(NamedTuple):
     centroids: torch.Tensor   # [B, d] f32
-    vectors: torch.Tensor     # [B, capacity, d] f32 (padded)
+    vectors: torch.Tensor     # [B, capacity, d] f32, or the plane's dtype (padded)
     ids: torch.Tensor         # [B, capacity] int32, PAD_ID marks padding
     counts: torch.Tensor      # [B] int32
     # optional internal mini-IVF (two-level index)
@@ -40,9 +41,11 @@ class PartitionStore(NamedTuple):
 
 
 def build_store(x, ids, assign, centroids, *, capacity: Optional[int] = None,
-                extra=None, device=None) -> PartitionStore:
+                extra=None, device=None, dtype: torch.dtype = torch.float32) -> PartitionStore:
     """Build padded lists on ``device`` (default: x's device when it is a
-    tensor, else the card, raising when there is none).
+    tensor, else the card, raising when there is none), the vector plane in
+    ``dtype`` (the rows are cast to it; an integer plane pads with 0, so a
+    byte store never holds a float copy of itself).
 
     ``extra`` = (vectors, ids, assign) replica rows appended by the
     redundancy strategy (paper §3.3); replicas share the id of the original
@@ -56,11 +59,11 @@ def build_store(x, ids, assign, centroids, *, capacity: Optional[int] = None,
     def t(a, dtype):
         return torch.as_tensor(a, device=device).to(dtype)
 
-    xs = [t(x, torch.float32)]
+    xs = [t(x, dtype)]
     xid = [t(ids, torch.int32)]
     xa = [t(assign, torch.int64)]
     if extra is not None and len(extra[0]):
-        xs.append(t(extra[0], torch.float32))
+        xs.append(t(extra[0], dtype))
         xid.append(t(extra[1], torch.int32))
         xa.append(t(extra[2], torch.int64))
     x_all, id_all, a_all = torch.cat(xs), torch.cat(xid), torch.cat(xa)
@@ -73,7 +76,8 @@ def build_store(x, ids, assign, centroids, *, capacity: Optional[int] = None,
     start = torch.cumsum(counts, 0) - counts
     rank = torch.arange(len(pa), device=device) - start[pa]
     keep = rank < cap
-    vec = torch.full((b, cap, d), 1e6, dtype=torch.float32, device=device)
+    pad = 1e6 if dtype.is_floating_point else 0
+    vec = torch.full((b, cap, d), pad, dtype=dtype, device=device)
     pid = torch.full((b, cap), PAD_ID, dtype=torch.int32, device=device)
     vec[pa[keep], rank[keep]] = x_all[order[keep]]
     pid[pa[keep], rank[keep]] = id_all[order[keep]]

@@ -45,44 +45,21 @@
 // G is 16 or 32, whichever the occupancy calculator lets an SM hold the most
 // rows of (the smaller on a tie), unless the caller names one (the autotuner,
 // kernels/autotune.py). The launch is refused when not even a group of 16
-// fits a block's shared memory, or when the G named does not.
+// fits a block's shared memory, or when the G named does not. The count and
+// plan kernels' bodies and the workspace are qbuf_plan.cuh's, which the
+// byte-row scan (l2u8_topk_qbuf.cu) shares.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "l2_scan.cuh"
+#include "qbuf_plan.cuh"
 #include "topk_merge.cuh"
 
 namespace {
 
 using namespace l2scan;
-
-constexpr long long kMinSplit = 16LL * 512;  // (row, candidate) pairs an item may always take
-constexpr int kShareDiv = 4;                 // an item holds at most 1/4 of a block's share
-constexpr int kCountThreads = 256;
-constexpr int kPlanThreads = 128;
-constexpr int kItemInts = 8;  // b, first slot, rows, c_lo, c_hi, ranges, first list, range
-// int counters, then the total work (8 bytes), then the arrivals
-enum { kFront, kBack, kPoolUsed, kNext, kWorkAt = 4, kCounterInts = 8 };
-
-// The workspace one launch needs: counters and arrivals (zeroed each
-// launch), each bucket's occupied count and valid end, the work items, and
-// the pool of partial lists.
-struct Workspace {
-  long long pool_lists, item_cap;
-  size_t occ, end, items, pd, pc, zeroed, total;
-  Workspace(int B, int S, int k, int G, int blocks) {
-    pool_lists = 2LL * kShareDiv * G * blocks;
-    item_cap = (long long)B * ((S + G - 1) / G) + pool_lists;
-    zeroed = align16((kCounterInts + (size_t)pool_lists) * 4);
-    occ = zeroed;
-    end = align16(occ + (size_t)B * 4);
-    items = align16(end + (size_t)B * 4);
-    pd = align16(items + (size_t)item_cap * kItemInts * 4);
-    pc = align16(pd + (size_t)pool_lists * k * 4);
-    total = align16(pc + (size_t)pool_lists * k * 4);
-  }
-};
+using namespace qbufplan;
 
 // One block a bucket: the empty slots' rows, the occupied count, the valid
 // end, and the bucket's share of the total work.
@@ -91,37 +68,7 @@ l2_topk_qbuf_count_kernel(const int* __restrict__ qbuf, int n_rows, int S,
                           const int* __restrict__ ids, int C, int k, float* __restrict__ od,
                           int* __restrict__ oi, int* __restrict__ ctr, int* __restrict__ occ,
                           int* __restrict__ end) {
-  __shared__ int counts[kCountThreads / 32];
-  __shared__ int end_slot;
-  const int b = blockIdx.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int empty_row = n_rows - 1;
-  const int* qb = qbuf + (size_t)b * S;
-  // warp w takes slots [32w, 32w + 32), [32(w + 8), ...): counts the
-  // occupied ones and writes inf / -1 to the empty ones, a row at a time
-  int n = 0;
-  for (int s0 = 32 * warp; s0 < S; s0 += kCountThreads) {
-    const int s = s0 + lane;
-    const int r = s < S ? __ldg(qb + s) : -1;
-    const unsigned occupied = __ballot_sync(kAllLanes, r >= 0 && r < empty_row);
-    unsigned empty = ~occupied & __ballot_sync(kAllLanes, s < S);
-    n += __popc(occupied);
-    for (; empty; empty &= empty - 1) {
-      const size_t row = (size_t)b * S + s0 + __ffs(empty) - 1;
-      fill_empty(od + row * k, oi + row * k, k, lane);
-    }
-  }
-  if (lane == 0) counts[warp] = n;
-  __syncthreads();
-  int n_occ = 0;
-  for (int w = 0; w < kCountThreads / 32; ++w) n_occ += counts[w];
-  // the whole block takes the same branch
-  const int e = n_occ > 0 ? scancommon::range_end(&end_slot, ids + (size_t)b * C, 0, C) : 0;
-  if (threadIdx.x == 0) {
-    occ[b] = n_occ;
-    end[b] = e;
-    atomicAdd(reinterpret_cast<unsigned long long*>(ctr + kWorkAt),
-              (unsigned long long)n_occ * (unsigned long long)e);
-  }
+  count_bucket(qbuf, n_rows, S, ids, C, k, od, oi, ctr, occ, end);
 }
 
 // A thread a bucket: its work items, and their ranges' partial lists.
@@ -129,33 +76,7 @@ __global__ void __launch_bounds__(kPlanThreads)
 l2_topk_qbuf_plan_kernel(int B, int G, int blocks, long long pool_lists, long long item_cap,
                          const int* __restrict__ occ, const int* __restrict__ end,
                          int* __restrict__ ctr, int* __restrict__ items) {
-  const int b = blockIdx.x * kPlanThreads + threadIdx.x;
-  if (b >= B) return;
-  const long long total = (long long)*reinterpret_cast<const unsigned long long*>(ctr + kWorkAt);
-  const long long share = (long long)kShareDiv * blocks;
-  const long long target = max(kMinSplit, (total + share - 1) / share);
-  const int n_occ = occ[b], e = end[b];
-  const long long units = (e + kRangeUnit - 1) / kRangeUnit;
-  for (int s_lo = 0; s_lo < n_occ; s_lo += G) {
-    const int nq = min(G, n_occ - s_lo);
-    const long long work = (long long)nq * e;
-    int R = work > target ? (int)min(units, (work + target - 1) / target) : 1, list0 = -1;
-    if (R > 1) {
-      list0 = atomicAdd(ctr + kPoolUsed, nq * R);
-      if (list0 + (long long)nq * R > pool_lists) R = 1;  // never, by the pool's bound
-    }
-    // items above half the target from the front, the rest from the back
-    const bool heavy = 2 * (work / R) > target;
-    const long long at =
-        heavy ? atomicAdd(ctr + kFront, R) : item_cap - R - atomicAdd(ctr + kBack, R);
-    for (int r = 0; r < R; ++r) {
-      const int c_lo = (int)min((long long)e, units * r / R * kRangeUnit);
-      const int c_hi = (int)min((long long)e, units * (r + 1) / R * kRangeUnit);
-      int4* it = reinterpret_cast<int4*>(items + (at + r) * kItemInts);
-      it[0] = make_int4(b, s_lo, nq, c_lo);
-      it[1] = make_int4(c_hi, R, R > 1 ? list0 : -1, r);
-    }
-  }
+  plan_bucket(B, G, blocks, pool_lists, item_cap, occ, end, ctr, items);
 }
 
 // Merge a split group's partial lists, R a row, into its rows' outputs
@@ -254,34 +175,6 @@ Plan plan_for(int d, int k, int itemsize, int G) {
   return itemsize == 2 ? plan_for<__nv_bfloat16>(d, k, G) : plan_for<float>(d, k, G);
 }
 
-// The scan's blocks: as many as the card holds at once.
-cudaError_t scan_blocks(const Plan& p, int* blocks) {
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  *blocks = sms * p.per_sm;
-  return err;
-}
-
-// The count and plan kernels: zero the counters, write the empty slots' rows
-// and the work items into `ws`.
-cudaError_t plan_items(const Plan& p, int blocks, const void* qbuf, int n_rows, int B, int S,
-                       const void* ids, int C, int k, void* ws, void* od, void* oi,
-                       cudaStream_t st) {
-  const Workspace w(B, S, k, p.G, blocks);
-  unsigned char* base = (unsigned char*)ws;
-  int* ctr = (int*)base;
-  cudaError_t err = cudaMemsetAsync(base, 0, w.zeroed, st);
-  if (err != cudaSuccess) return err;
-  l2_topk_qbuf_count_kernel<<<B, kCountThreads, 0, st>>>(
-      (const int*)qbuf, n_rows, S, (const int*)ids, C, k, (float*)od, (int*)oi, ctr,
-      (int*)(base + w.occ), (int*)(base + w.end));
-  l2_topk_qbuf_plan_kernel<<<(B + kPlanThreads - 1) / kPlanThreads, kPlanThreads, 0, st>>>(
-      B, p.G, blocks, w.pool_lists, w.item_cap, (const int*)(base + w.occ),
-      (const int*)(base + w.end), ctr, (int*)(base + w.items));
-  return cudaGetLastError();
-}
-
 template <typename T>
 int launch(const void* q_pad, int n_rows, const void* qbuf, int B, int S, const void* cands,
            const void* ids, int C, int d, int k, int G, void* ws, void* od, void* oi,
@@ -293,7 +186,8 @@ int launch(const void* q_pad, int n_rows, const void* qbuf, int B, int S, const 
   cudaError_t err = scan_blocks(p, &blocks);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
-  err = plan_items(p, blocks, qbuf, n_rows, B, S, ids, C, k, ws, od, oi, st);
+  err = plan_items(l2_topk_qbuf_count_kernel, l2_topk_qbuf_plan_kernel, p, blocks, qbuf, n_rows,
+                   B, S, ids, C, k, ws, od, oi, st);
   if (err != cudaSuccess) return (int)err;
   const Workspace w(B, S, k, p.G, blocks);
   unsigned char* base = (unsigned char*)ws;
@@ -345,15 +239,7 @@ void l2_topk_qbuf_plan_group(int d, int k, int itemsize, int G, long long* out) 
 // the back), out[3] the partial lists its pool holds. Zero bytes when no
 // group fits a block.
 void l2_topk_qbuf_workspace(int B, int S, int d, int k, int itemsize, int G, long long* out) {
-  const Plan p = plan_for(d, k, itemsize, G);
-  int blocks = 0;
-  out[0] = out[1] = out[2] = out[3] = 0;
-  if (p.G == 0 || scan_blocks(p, &blocks) != cudaSuccess) return;
-  const Workspace w(B, S, k, p.G, blocks);
-  out[0] = (long long)w.total;
-  out[1] = (long long)w.items;
-  out[2] = w.item_cap;
-  out[3] = w.pool_lists;
+  workspace_sizes(plan_for(d, k, itemsize, G), B, S, k, out);
 }
 
 // The count and plan kernels alone, into `ws` (its counters first, int32:
@@ -368,8 +254,8 @@ int l2_topk_qbuf_plan(const void* qbuf, int n_rows, int B, int S, const void* id
   int blocks = 0;
   const cudaError_t err = scan_blocks(p, &blocks);
   if (err != cudaSuccess) return (int)err;
-  return (int)plan_items(p, blocks, qbuf, n_rows, B, S, ids, C, k, ws, od, oi,
-                         (cudaStream_t)stream);
+  return (int)plan_items(l2_topk_qbuf_count_kernel, l2_topk_qbuf_plan_kernel, p, blocks, qbuf,
+                         n_rows, B, S, ids, C, k, ws, od, oi, (cudaStream_t)stream);
 }
 
 // q_pad [n_rows, d], qbuf [B, S] int32, cands [B, C, d], ids [B, C] int32

@@ -15,6 +15,7 @@ from repro_torch.kernels import autotune as _autotune
 from repro_torch.kernels import dedup_topk as _dd
 from repro_torch.kernels import kmeans_assign as _km
 from repro_torch.kernels import l2_topk as _l2
+from repro_torch.kernels import l2u8_topk as _l2u8
 from repro_torch.kernels import pq_adc as _adc
 from repro_torch.kernels import ref as _ref
 
@@ -70,6 +71,19 @@ def l2_topk_qbuf(q_pad, qbuf, cands, cand_ids, k: int, *, impl: str | None = Non
     group = _autotune.lookup(_autotune.l2_key(cands.shape[1], cands.shape[2], k,
                                               cands.element_size()))
     return _l2.l2_topk_qbuf(q_pad, qbuf, cands, cand_ids, k, group=group or 0)
+
+
+def l2u8_topk_qbuf(q_pad, qbuf, cands, sqnorm, cand_ids, k: int, *, impl: str | None = None):
+    """Byte-row dispatch-buffer top-k: compact uint8 ``q_pad`` [R, d] +
+    ``qbuf`` [B, S] indices vs uint8 [B, C, d] candidate sets with their
+    int32 ``sqnorm`` [B, C] (||x||²) → ([B, S, k] exact integer distances as
+    f32, [B, S, k] ids)."""
+    impl = resolve_impl(impl, cands.device)
+    qbuf = qbuf.to(torch.int32)
+    cand_ids = cand_ids.to(torch.int32)
+    if impl == "ref":
+        return _ref.l2u8_topk_qbuf_ref(q_pad, qbuf, cands, sqnorm, cand_ids, k)
+    return _l2u8.l2u8_topk_qbuf(q_pad, qbuf, cands, sqnorm, cand_ids, k)
 
 
 def pq_adc_topk_qbuf(lut_pad, qbuf, codes, cand_ids, k: int, *, cand_off=None, q_off=None,

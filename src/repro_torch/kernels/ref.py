@@ -74,6 +74,42 @@ def l2_topk_qbuf_ref(q_pad: torch.Tensor, qbuf: torch.Tensor, cands: torch.Tenso
     return l2_topk_batched_ref(q_pad[qbuf.long()], cands, cand_ids, k)
 
 
+def l2u8_topk_qbuf_ref(q_pad: torch.Tensor, qbuf: torch.Tensor, cands: torch.Tensor,
+                       sqnorm: torch.Tensor, cand_ids: torch.Tensor, k: int):
+    """Oracle for the byte-row dispatch-buffer scan: ``q_pad`` [R, d] and
+    ``cands`` [B, C, d] uint8, ``sqnorm`` [B, C] the rows' ||x||², and the
+    integer distance ||q||² − 2 q·x + ||x||² in int64 (the products summed
+    in float64, exact at these magnitudes), the k smallest by (distance,
+    position) — a stable sort, so the lowest position wins a tie — as f32
+    (exact below 2**24), inf / -1 where ids < 0 or past the valid
+    candidates. Buckets go in chunks, so the [B, S, C] distances are never
+    whole; the empty slots are scanned against their row as any other."""
+    b, s = qbuf.shape
+    c = cands.shape[1]
+    out_d = torch.empty((b, s, k), dtype=torch.float32, device=cands.device)
+    out_i = torch.empty((b, s, k), dtype=torch.int32, device=cands.device)
+    step = max(1, _ADC_CHUNK // max(1, s * c))     # the ADC scan's bound, below
+    big = torch.iinfo(torch.int64).max
+    for b0 in range(0, b, step):
+        bs = slice(b0, b0 + step)
+        q = q_pad[qbuf[bs].long()].double()                        # [b', S, d]
+        x = cands[bs].double()                                     # [b', C, d]
+        dot = torch.matmul(q, x.transpose(1, 2)).long()
+        qq = (q * q).sum(-1).long()
+        d2 = qq[:, :, None] - 2 * dot + sqnorm[bs].long()[:, None, :]
+        ids = cand_ids[bs].to(torch.int32)
+        d2 = torch.where(ids[:, None, :] < 0, big, d2)
+        if c < k:  # degenerate pools: pad so the top-k is well-defined
+            d2 = pad_dim(d2, 2, k, big)
+            ids = pad_dim(ids, 1, k, PAD_ID)
+        top, pos = smallest_k(d2, k)
+        got = top != big
+        out_d[bs] = torch.where(got, top, 0).float().masked_fill_(~got, torch.inf)
+        cid = torch.gather(ids[:, None, :].expand(-1, s, -1), 2, pos)
+        out_i[bs] = torch.where(got, cid, PAD_ID)
+    return out_d, out_i
+
+
 # ---------------------------------------------------------------- PQ / ADC
 #
 # The ADC sum runs over the subspaces in order, m = 0 … m−1, then adds q_off,

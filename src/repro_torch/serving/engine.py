@@ -12,7 +12,8 @@ device) for its rows of the batch and its block of partitions:
      partition's q_cap are counted as overflow, batch-padding rows never
      probe;
   3. scan (serving/scan.py): ``kernels.l2_topk_qbuf`` per partition for the
-     f32 tier; for the quantized tiers an ADC shortlist through
+     f32 tier, ``kernels.l2u8_topk_qbuf`` over byte rows for the u8 tier;
+     for the quantized tiers an ADC shortlist through
      ``kernels.pq_adc_topk_qbuf``, then an exact f32 rerank;
   4. merge: each query's dispatched lists gathered through a slot map into
      its [nprobe_max·k] pool, then the replica-aware ``kernels.dedup_topk``,
@@ -61,7 +62,8 @@ from repro_torch.train import optimizer as opt
 from repro_torch.utils.device import resolve_device
 
 # the dispatch sentinel query row: its ||q||² ≈ d·1e18 stays finite in f32,
-# and 1e9 stays finite when cast to a bfloat16 store
+# and 1e9 stays finite when cast to a bfloat16 store. A byte row's is 0 (1e9
+# overflows a uint8): the kernels skip empty slots, so it is never read
 _SENTINEL = 1e9
 
 
@@ -197,8 +199,11 @@ def make_serve_step(cfg: LiraSystemConfig, n_queries: int, *, sigma: float, impl
     # to the tier, which assembles the scan's extra operands from them
     extra_fields = tuple(n for n in tier.store_specs(cfg) if n not in tiers.BASE_FIELDS)
 
-    def rank_step(model, block, q, valid, b0, tracer, counts, rank):
-        dev = q.device
+    def rank_step(model, block, q_in, valid, b0, tracer, counts, rank):
+        dev = q_in.device
+        # byte queries come as they crossed to the card: probing and dispatch
+        # see them as f32, the scan as they are
+        q = q_in if q_in.is_floating_point() else q_in.float()
         # tombstoned/free slots never surface ids: occupancy folds into the id
         # plane, which the scan masks as id < 0
         ids_loc = torch.where(block["occupancy"], block["ids"], -1)
@@ -246,8 +251,9 @@ def make_serve_step(cfg: LiraSystemConfig, n_queries: int, *, sigma: float, impl
 
         # ---- per-partition scan
         with _stage(tracer, "lira.scan", rank=rank):
-            q_pad = torch.cat([q, torch.full((1, q.shape[1]), _SENTINEL, dtype=q.dtype,
-                                             device=dev)])
+            sentinel = _SENTINEL if q_in.is_floating_point() else 0
+            q_pad = torch.cat([q_in, torch.full((1, q.shape[1]), sentinel, dtype=q_in.dtype,
+                                                device=dev)])
             ctx = tiers.ScanContext(q_loc=q, q_pad=q_pad, cd=cd, b0=b0, b_loc=b_loc, k=k)
             scan_kw = tier.scan_kwargs(cfg, ctx, {n: block[n] for n in extra_fields})
             dists, rids = scan.run(impl, qbuf, q_pad, block["vectors"], ids_loc, k, **scan_kw)
@@ -481,7 +487,10 @@ class LiraEngine:
         ``build.tier`` (the tier's store: a cast, or PQ's codebooks and
         codes); each stage ends by synchronizing ``device`` and adds its
         seconds to ``metrics``' (None: ``default_registry()``)
-        ``lira_build_seconds_total{stage}``. The engine keeps both."""
+        ``lira_build_seconds_total{stage}``. The engine keeps both. For a
+        tier whose plane holds bytes (``u8``), ``x`` holds whole numbers in
+        [0, 255], which the store keeps as bytes; the other stages see them
+        as f32."""
         dev = resolve_device(device)
         tr = tracer if tracer is not None else obs_trace.NOOP
         reg = metrics if metrics is not None else obs_metrics.default_registry()
@@ -490,7 +499,13 @@ class LiraEngine:
         gen.manual_seed(config.seed)
         host = np.random.default_rng(config.seed)
         n_partitions = config.n_partitions
-        xt = torch.as_tensor(x, dtype=torch.float32, device=dev)
+        if tier.plane_dtype.is_floating_point:
+            xt = x_rows = torch.as_tensor(x, dtype=torch.float32, device=dev)
+        else:
+            # the store keeps the bytes; k-means, the probing model and the
+            # redundancy plan see them cast to f32
+            x_rows = tiers.as_bytes(torch.as_tensor(x, device=dev))
+            xt = x_rows.float()
         n = xt.shape[0]
         with tr.span("build", rows=n, partitions=n_partitions, tier=tier.name):
             with _build_stage(tr, reg, dev, "kmeans"):
@@ -512,14 +527,16 @@ class LiraEngine:
             with _build_stage(tr, reg, dev, "redundancy"):
                 ids = np.arange(n, dtype=np.int32)
                 plan = plan_redundancy(model, xt, assign, cents, eta=config.eta)
-                extra = replica_rows(plan, xt, ids)
+                extra = replica_rows(plan, x_rows, ids)
+                del xt
 
             with _build_stage(tr, reg, dev, "store"):
-                store_h = build_store(xt, ids, assign, cents, extra=extra)
+                store_h = build_store(x_rows, ids, assign, cents, extra=extra,
+                                      dtype=tier.plane_dtype)
 
             with _build_stage(tr, reg, dev, "tier"):
                 cfg = LiraSystemConfig(
-                    arch="lira", dim=xt.shape[1], n_partitions=n_partitions,
+                    arch="lira", dim=x_rows.shape[1], n_partitions=n_partitions,
                     capacity=store_h.capacity, k=config.k,
                     nprobe_max=min(n_partitions, config.nprobe_max or max(8, n_partitions // 8)),
                     tier=tier.name, pq_m=config.pq_m or 0, pq_ks=config.pq_ks,
@@ -578,7 +595,10 @@ class LiraEngine:
     def search(self, queries, sigma: Optional[float] = None, impl: Optional[str] = None,
                *, k: Optional[int] = None, tier: Optional[str] = None) -> api.SearchResult:
         """Serve one query batch: ``queries`` is an [nq, dim] array or a
-        SearchRequest (then no other arguments are allowed)."""
+        SearchRequest (then no other arguments are allowed). The tier takes
+        them as f32, or as uint8 (the u8 tier, which refuses others), and
+        they cross to the card so; ``lira_engine_query_bytes_total`` counts
+        the bytes."""
         if isinstance(queries, api.SearchRequest):
             if any(a is not None for a in (sigma, impl, k, tier)):
                 raise TypeError("pass either a SearchRequest or keyword overrides, not both")
@@ -590,10 +610,10 @@ class LiraEngine:
         # synchronize that ends it run the same traced or not
         with tr.span("engine.search") as sp_root:
             with tr.span("engine.prepare") as sp_prep:
-                q = np.asarray(req.queries, np.float32)
+                tier_obj = tiers.resolve(req.tier if req.tier is not None else self.cfg.tier)
+                q = tier_obj.queries(req.queries)   # f32, or uint8 for the u8 tier
                 if q.ndim != 2 or q.shape[1] != self.cfg.dim:
                     raise ValueError(f"queries must be [nq, {self.cfg.dim}], got {q.shape}")
-                tier_obj = tiers.resolve(req.tier if req.tier is not None else self.cfg.tier)
                 missing = [f for f in tier_obj.store_specs(self.cfg) if f not in self.store]
                 if missing:
                     raise ValueError(f"engine store lacks {missing} required by tier "
@@ -604,9 +624,9 @@ class LiraEngine:
                 nq = q.shape[0]
                 nq_pad = self._batch_bucket(nq)
                 fn, cache_hit, impl = self.serve_fn(nq_pad, sigma, tier_obj.name, req.impl, k)
-                qp = torch.zeros((nq_pad, self.cfg.dim), dtype=torch.float32,
-                                 device=self.device)
-                qp[:nq] = torch.as_tensor(q, device=self.device)
+                qt = torch.as_tensor(q, device=self.device)
+                qp = qt.new_zeros((nq_pad, self.cfg.dim))
+                qp[:nq] = qt
                 valid = torch.zeros((nq_pad,), dtype=torch.bool, device=self.device)
                 valid[:nq] = True
             counts = {}
@@ -638,6 +658,8 @@ class LiraEngine:
         m = self._registry()
         m.counter("lira_engine_searches_total", "engine.search calls").inc(**lbl)
         m.counter("lira_engine_rows_total", "query rows served (pre-padding)").inc(nq, **lbl)
+        m.counter("lira_engine_query_bytes_total",
+                  "query bytes copied to the card (pre-padding)").inc(q.nbytes, **lbl)
         m.counter("lira_engine_probes_total",
                   "partition probes attempted (pre q_cap drops — includes any counted by "
                   "overflow_probes_total)").inc(float(npb_np.sum()), **lbl)
@@ -995,10 +1017,11 @@ class LiraEngine:
             for name in tier.slot_fields(self.cfg):
                 old = store[name]
                 if shape_changed:
-                    plane = old.new_full((nb, needed, *old.shape[2:]), mutable.fill_value(name))
+                    plane = old.new_full((nb, needed, *old.shape[2:]),
+                                         mutable.fill_value(name, old.dtype))
                     store[name] = plane
                 else:
-                    plane = old.fill_(mutable.fill_value(name))
+                    plane = old.fill_(mutable.fill_value(name, old.dtype))
                 plane[a_all, slots] = True if name == "occupancy" else rows[name].to(plane.dtype)
             self._stale_inserts = np.zeros(nb, np.int64)
             sp.set(rows=len(xu), moved=moved, replicas=len(x_all) - len(xu),

@@ -36,11 +36,14 @@ PLACE_WINDOW = 4
 
 # pad sentinels per slot plane, as core.partitions.build_store pads (a vector
 # of 1e6 never wins a top-k; id -1 is the scan's invalid marker). Other planes
-# (codes, cterm) zero-fill: ids and occupancy mark their slots dead.
+# (codes, cterm, sqnorm) and an integer vector plane zero-fill: ids and
+# occupancy mark their slots dead.
 _FILL = {"vectors": 1e6, "ids": -1, "occupancy": False}
 
 
-def fill_value(name: str):
+def fill_value(name: str, dtype: torch.dtype = torch.float32):
+    if name == "vectors" and not dtype.is_floating_point:
+        return 0
     return _FILL.get(name, 0)
 
 
@@ -90,7 +93,7 @@ def grow_store(planes: dict, new_cap: int) -> dict:
             raise ValueError(f"grow_store cannot shrink {name}: "
                              f"{arr.shape[1]} -> {new_cap} (use compact_store)")
         pad = arr.new_full((arr.shape[0], new_cap - arr.shape[1], *arr.shape[2:]),
-                           fill_value(name))
+                           fill_value(name, arr.dtype))
         out[name] = torch.cat([arr, pad], 1)
     return out
 
@@ -118,7 +121,7 @@ def compact_store(planes: dict, occ, *, min_capacity: int = 1) -> tuple:
         if g.shape[1] < new_cap:        # min_capacity above the old capacity
             g = grow_store({name: g}, new_cap)[name]
         out[name] = g.masked_fill_(dead.reshape(dead.shape + (1,) * (g.ndim - 2)),
-                                   fill_value(name))
+                                   fill_value(name, g.dtype))
     return out, new_cap
 
 

@@ -1,6 +1,7 @@
 """Per-partition scan of the serve step (counterpart of
-``repro/serving/scan.py``): the f32 tier's fused L2 top-k, or the quantized
-tiers' two stages — an ADC shortlist of ``rk`` slots from the shared LUT
+``repro/serving/scan.py``): the f32 tier's fused L2 top-k, the u8 tier's
+exact integer L2 top-k over byte rows, or the quantized tiers' two stages —
+an ADC shortlist of ``rk`` slots from the shared LUT
 (plus the residual offsets), then an exact f32 rerank of the shortlist.
 ``impl`` picks the plain versions (``"ref"``) or the kernels (``"cuda"``);
 both give the same answers.
@@ -17,7 +18,7 @@ _RERANK_CHUNK = 1 << 28
 
 
 def run(impl: str, qbuf, q_pad, vecs_loc, ids_loc, k: int, *, lut_pad=None, codes_loc=None,
-        rk=None, cterm_loc=None, off_loc=None):
+        rk=None, cterm_loc=None, off_loc=None, sqnorm_loc=None):
     """Scan every partition's candidates for its dispatched queries.
 
     qbuf      [b_loc, q_cap] int32 — query row per slot, ``q_row`` = empty
@@ -30,6 +31,8 @@ def run(impl: str, qbuf, q_pad, vecs_loc, ids_loc, k: int, *, lut_pad=None, code
     cterm_loc [b_loc, cap]         — residual only: per-slot cross terms
     off_loc   [b_loc, q_row + 1]   — residual only: per-(partition, query)
                                      offsets, zero column for empty slots
+    sqnorm_loc [b_loc, cap] int32  — u8 only: each row's ||x||²; q_pad and
+                                     vecs_loc are then uint8
 
     Returns ([b_loc, q_cap, k] dists, [b_loc, q_cap, k] ids); rows for empty
     slots are dropped by the serve step's scatter.
@@ -37,6 +40,8 @@ def run(impl: str, qbuf, q_pad, vecs_loc, ids_loc, k: int, *, lut_pad=None, code
     if lut_pad is not None:
         return _quantized(impl, qbuf, q_pad, vecs_loc, ids_loc, k, lut_pad, codes_loc, rk,
                           cterm_loc, off_loc)
+    if sqnorm_loc is not None:
+        return kops.l2u8_topk_qbuf(q_pad, qbuf, vecs_loc, sqnorm_loc, ids_loc, k, impl=impl)
     # cast the compact plane to the store dtype: the quantization point of
     # the reference (bf16 stores see bf16 queries, accumulated in f32)
     qp = q_pad.to(vecs_loc.dtype)

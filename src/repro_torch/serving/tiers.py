@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 # fields every tier provides — the serve step's probing/dispatch/rerank
@@ -33,6 +34,11 @@ import torch
 BASE_FIELDS = ("centroids", "vectors", "ids", "occupancy")
 
 STORE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# 255² · 258 < 2**24: the widest byte rows whose distances an f32 holds exactly
+U8_MAX_DIM = 258
+# elements of the [partitions, capacity, d] int32 block one ||x||² step holds
+_SQNORM_BLOCK = 1 << 26
 
 _REGISTRY: dict[str, "Tier"] = {}
 
@@ -74,8 +80,8 @@ def store_dtype(cfg) -> torch.dtype:
 class ScanContext:
     """Serve-step state a tier may derive scan operands from."""
 
-    q_loc: torch.Tensor     # [q_row, d] query rows
-    q_pad: torch.Tensor     # [q_row + 1, d] queries + sentinel row
+    q_loc: torch.Tensor     # [q_row, d] query rows, f32
+    q_pad: torch.Tensor     # [q_row + 1, d] queries as they came + sentinel row
     cd: torch.Tensor        # [q_row, B] query↔centroid squared distances
     b0: int                 # first partition of this rank's block
     b_loc: int              # partitions on this rank
@@ -89,6 +95,11 @@ class Tier:
 
     name = "f32"
     aliases: tuple = ()
+    plane_dtype = torch.float32     # the dtype build_store lays the rows out in
+
+    def queries(self, q) -> np.ndarray:
+        """A batch of queries as ``search`` copies them to the card."""
+        return np.asarray(q, np.float32)
 
     def store_specs(self, cfg) -> dict:
         """Field name → (shape, dtype)."""
@@ -128,8 +139,13 @@ class Tier:
         return {"vectors": x.to(store["vectors"].dtype)}
 
     def check_servable(self, cfg) -> None:
-        """Any store carries the exact f32 operands."""
-        del cfg
+        """A tier serves only stores whose rows are laid out in its own
+        ``plane_dtype``: bytes by the byte tier alone, floats by the others."""
+        built = resolve(cfg.tier)
+        if built.plane_dtype != self.plane_dtype:
+            raise ValueError(f"the store holds {built.plane_dtype} rows (built with "
+                             f"tier={cfg.tier!r}); tier {self.name!r} serves "
+                             f"{self.plane_dtype} rows")
 
     def scan_kwargs(self, cfg, ctx: ScanContext, fields: dict) -> dict:
         del cfg, ctx, fields
@@ -201,6 +217,7 @@ class PqTier(Tier):
         return rows
 
     def check_servable(self, cfg) -> None:
+        super().check_servable(cfg)
         # residual codes encode x − centroid: a plain shared-LUT scan of them
         # would rank by distance to the residual — wrong answers, not an error
         if not self.residual and cfg.tier == "residual_pq":
@@ -252,3 +269,84 @@ class ResidualPqTier(PqTier):
                   off_loc=off_pad[:, ctx.b0:ctx.b0 + ctx.b_loc].T)
         return kw
 
+
+
+def as_bytes(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as uint8 rows: uint8 as it is, other whole numbers in [0, 255]
+    cast; anything else is refused."""
+    if x.dtype == torch.uint8:
+        return x
+    if x.dtype == torch.bool or x.is_complex():
+        raise ValueError(f"u8 tier: rows of {x.dtype}")
+    if x.numel():
+        whole = not x.is_floating_point() or bool((x == x.round()).all())
+        if not whole or bool((x < 0).any()) or bool((x > 255).any()):
+            raise ValueError("u8 tier: rows must be whole numbers in [0, 255]")
+    return x.to(torch.uint8)
+
+
+def sq_norms(vectors: torch.Tensor) -> torch.Tensor:
+    """||x||² of every row of a uint8 plane [..., d] as int32, a block of
+    leading rows at a time."""
+    flat = vectors.reshape(-1, vectors.shape[-1])
+    out = torch.empty(flat.shape[0], dtype=torch.int32, device=vectors.device)
+    step = max(1, _SQNORM_BLOCK // max(1, flat.shape[1]))
+    for r0 in range(0, flat.shape[0], step):
+        x = flat[r0:r0 + step].to(torch.int32)
+        out[r0:r0 + step] = (x * x).sum(-1, dtype=torch.int32)
+    return out.reshape(vectors.shape[:-1])
+
+
+@register
+class U8Tier(Tier):
+    """Exact L2 over byte rows, as BIGANN's SIFT descriptors come: a uint8
+    vector plane and an int32 plane of each row's ||x||², split over
+    ``"model"`` with it, scanned by ``kernels.l2u8_topk_qbuf`` with exact
+    integer distances (reported as f32, exact below 2**24). Queries come as
+    uint8 and cross to the card so; k-means, the probing model and the
+    redundancy plan see the rows cast to f32."""
+
+    name = "u8"
+    aliases = ("uint8",)
+    plane_dtype = torch.uint8
+
+    def queries(self, q) -> np.ndarray:
+        q = np.asarray(q)
+        if q.dtype != np.uint8:
+            raise ValueError(f"the u8 tier serves uint8 queries, got {q.dtype}")
+        return q
+
+    def store_specs(self, cfg) -> dict:
+        specs = super().store_specs(cfg)
+        b, c, d = cfg.n_partitions, cfg.capacity, cfg.dim
+        specs["vectors"] = ((b, c, d), torch.uint8)
+        specs["sqnorm"] = ((b, c), torch.int32)
+        return specs
+
+    def store_pspecs(self, cfg=None) -> dict:
+        sp = super().store_pspecs(cfg)
+        sp["sqnorm"] = "model"      # rides with its vectors
+        return sp
+
+    def build_store(self, cfg, store_h, *, generator=None):
+        del generator
+        vecs = as_bytes(store_h.vectors)
+        ids = store_h.ids
+        store = {"centroids": store_h.centroids, "vectors": vecs, "ids": ids,
+                 "occupancy": ids >= 0, "sqnorm": sq_norms(vecs)}
+        return store, cfg
+
+    def encode_rows(self, cfg, store, x, parts) -> dict:
+        del cfg, store, parts
+        rows = as_bytes(x)
+        return {"vectors": rows, "sqnorm": sq_norms(rows)}
+
+    def check_servable(self, cfg) -> None:
+        super().check_servable(cfg)
+        if cfg.dim > U8_MAX_DIM:
+            raise ValueError(f"the u8 tier serves widths up to {U8_MAX_DIM}, where the "
+                             f"distances stay exact in f32; the store's is {cfg.dim}")
+
+    def scan_kwargs(self, cfg, ctx: ScanContext, fields: dict) -> dict:
+        del cfg, ctx
+        return {"sqnorm_loc": fields["sqnorm"]}

@@ -335,7 +335,8 @@ def test_tracer_matches_reference(tmp_path):
 # stages and the device sync as spans, the scan's live rows and the merge
 # pool's entries as series
 PORT_ONLY_SPANS = ("lira.probing", "lira.dispatch", "lira.scan", "lira.merge", "engine.sync")
-PORT_ONLY_SERIES = ("lira_engine_scan_pair_rows_total", "lira_engine_merge_pool_entries_total")
+PORT_ONLY_SERIES = ("lira_engine_scan_pair_rows_total", "lira_engine_merge_pool_entries_total",
+                    "lira_engine_query_bytes_total")
 
 
 def _without_spans(spans: list, names) -> list:

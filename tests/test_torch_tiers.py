@@ -104,8 +104,9 @@ def test_registry_resolves_names_and_aliases():
     assert tiers.resolve("residual").name == "residual_pq"
     t = tiers.resolve("pq")
     assert tiers.resolve(t) is t  # already-resolved passthrough
-    assert set(tiers.names()) >= {"f32", "pq", "residual_pq"}
-    assert tiers.names() == tuple(sorted(jax_tiers.names()))
+    assert set(tiers.names()) >= {"f32", "pq", "residual_pq", "u8"}
+    # the JAX package's tiers, and the port's own byte tier
+    assert tiers.names() == tuple(sorted({*jax_tiers.names(), "u8"}))
     assert all(isinstance(tiers.resolve(n), tiers.Tier) for n in tiers.names())
 
 
