@@ -32,14 +32,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                batches of 1,000 through search() with every kernel's launch
                counter zeroed just before and read just after:
                  f32         — recall@100 against exact ground truth (≥ 0.9);
+                               no quantized stage launched;
                  residual_pq — recall@100 at lira-ann-q's rerank 4 (≥ 0.85),
                                and again at rerank 16, where it must be
                                ≥ 0.9 and within 0.03 of the f32 path's;
+                               pq_adc_topk_qbuf, rerank_topk_qbuf and
+                               dedup_topk launched;
                then one batch per path served again with impl="ref" must
                agree;
   5. pq      — a second engine with tier pq at 100,000 base points (same
                widths), built twice from one seed (every probing parameter
-               and store plane equal bit for bit): launches, recall@100
+               and store plane equal bit for bit): launches (the ADC scan,
+               the rerank and dedup_topk), recall@100
                against its own f32 tier, and cuda vs ref;
   6. kernels — each kernel against its plain version on the inputs the main
                paths gave it, timed with CUDA events beside its bound;
@@ -49,7 +53,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                blocks an SM) and how its work spreads over its work items
                (the heaviest item's share); pq_adc_topk_qbuf also at the rerank-16 path's stage 1
                (rk = 1,600) and with every dispatch slot empty, and its
-               launch shape at both rk;
+               launch shape at both rk; rerank_topk_qbuf at both paths'
+               stage 2 (rk = 400 and 1,600), carried in phase 27's entry;
   7. kmeans  — the build's k-means over the 1M base (B = 1024, 20 Lloyd
                iterations from one k-means++ start): two plain fits must be
                equal bit for bit, a fit through kmeans_assign (21 launches)
@@ -104,7 +109,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                saved and loaded, one batch equal bit for bit;
  14. churn   — on the main engine, in shares of its 1M base rows: 50,000
                deletes, a batch at f32 and residual_pq (no deleted id, the
-               three serve kernels launched), compact(), the same batches
+               four serve kernels launched), compact(), the same batches
                equal bit for bit; five rounds of 30,000 deletes, 20,000
                inserts (base rows plus noise at 1% of the base's standard
                deviation) and maybe_repartition(), an f32 batch each with
@@ -123,8 +128,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                rerank 4 under the comparison rule with the rows equal bit
                for bit counted, nprobe_eff and overflow equal, dedup_hits at
                most the unsharded count; each batch launches the scan once a
-               rank and dedup_topk once a rank plus once to merge across
-               ranks; the three serve kernels held against their plain
+               rank (residual_pq: the ADC scan and the rerank) and dedup_topk
+               once a rank plus once to merge across ranks; the four serve
+               kernels held against their plain
                versions at the meshed shapes (a block of 256 partitions, a
                cross-rank pool of 4 x 100) and timed beside their bounds;
                impl="cuda" against "ref" on the meshed step; then data 2 x
@@ -136,7 +142,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                engine over its ~250,000 rows trained on as many rows as the
                single engine; per path recall@100 against phase 4's ground
                truth (f32 >= 0.9) and each batch equal bit for bit to
-               dedup_topk_np of the shard engines' own searches; a replica
+               dedup_topk_np of the shard engines' own searches, the scan
+               (residual_pq: the ADC scan and the rerank) and dedup_topk
+               launched once a shard; the four serve kernels held against
+               their plain versions at a shard's shapes; a replica
                killed with a batch in flight and one stalled (failed by tick
                on a FakeClock) leave every answer's bits; a whole dead group
                raises; a full fan-out exactness gate (4 shards over 100,000
@@ -311,11 +320,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                (int64) on the occupied slots, inf / -1 on the empty ones, and
                to the f32 scan over the rows cast to f32; timed beside its
                bound at the INT8 tensor-core rate and with every slot empty.
+ 27. rerank  — after 26, on a freed card: the quantized tiers' exact rerank
+               at lira-ann-q's deployment (lirabench/configs/lira-ann-q.json,
+               the file the benchmark's cell runs: 2,000,000 rows at d 128,
+               B 1,024, residual PQ m 16, ks 256, rerank 4, k 100), built on
+               the card; one batch of 8,192 queries through search() with the
+               launch counters zeroed just before: pq_adc_topk_qbuf,
+               rerank_topk_qbuf and dedup_topk launched once, the f32 scan
+               not at all; the rerank on the batch's operands held against
+               its plain version (distances under l2_atol, ids equal up to
+               ties at the k-th place, the rows equal element for element
+               counted), inf / -1 on the empty slots, two runs equal bit for
+               bit; timed beside its bound (each distinct shortlisted row
+               read once, each occupied slot's shortlist, query and list),
+               beside the plain version and with every slot empty.
 Phases 20-24 launch none of the kernels: the LM's attention is the
 reference's plain block scan, its loss and optimizer plain XLA, the recsys
 family's embedding bag a gather and sum and DimeNet's message passing
 segment sums, and no Pallas kernel lies on their path.
-Phases 7-12, 15-17, 25 and 26 zero the launch counters just before each path and
+Phases 7-12, 15-17 and 25-27 zero the launch counters just before each path and
 read them just after. Every matmul runs in full f32 (TF32 off for matmul and cuDNN),
 so the plain versions are exact oracles.
 The line before the last is the kernels JSON; the last line is
@@ -429,6 +452,27 @@ def compare_adc_trio(what, lut_pad, qbuf, codes, cand_ids, k, cand_off, q_off) -
                          what=f"{what}: pq_adc_topk_batched vs pq_adc_topk_qbuf")
 
 
+def compare_rerank(what, q_pad, qbuf, vecs, ids, shortlist, k, *, exact_ids=False):
+    """Kernel vs plain version on the occupied slots, under ``l2_atol``: the
+    two sum the expansion in other orders. Returns (max abs err, occupied
+    slots whose ids equal element for element)."""
+    import torch
+
+    from repro_torch import testing as rt
+    from repro_torch.kernels import ops as kops
+
+    args = (q_pad, qbuf, vecs, ids, shortlist, k)
+    d_k, i_k = kops.rerank_topk_qbuf(*args, impl="cuda")
+    d_p, i_p = kops.rerank_topk_qbuf(*args, impl="ref")
+    occ = rt.occupied(q_pad, qbuf)
+    if not (bool(torch.isinf(d_k[~occ]).all()) and bool((i_k[~occ] == -1).all())):
+        raise AssertionError(f"{what}: empty slots not flushed as inf / -1")
+    err = rt.assert_topk_match(d_k[occ], i_k[occ], d_p[occ], i_p[occ],
+                               rt.qbuf_atol(q_pad, qbuf, vecs.float(), ids),
+                               exact_ids=exact_ids, what=what)
+    return err, int((i_k[occ] == i_p[occ]).all(-1).sum())
+
+
 def compare_dedup(what, dists, ids, k) -> float:
     """Kernel vs plain version: no arithmetic, so the answers and the
     duplicate counts equal element for element."""
@@ -501,6 +545,14 @@ def edge_cases(dev) -> None:
             f"S {qbuf.shape[1]}, N {codes.shape[1]}, k {k})")
         compare_adc_trio(case, lut_pad, qbuf, codes, ids, k, coff, qoff)
         log(f"edges  pq_adc / pq_adc_topk / pq_adc_topk_batched  {case}: ok, equal")
+    for case in rt.RERANK_CASES:
+        (q_pad, qbuf, vecs, ids, sl), k, dtype, exact = rt.rerank_case(case, width="main")
+        q_pad, qbuf, vecs, ids, sl = (torch.from_numpy(a).to(dev)
+                                      for a in (q_pad, qbuf, vecs, ids, sl))
+        err, _ = compare_rerank(case, q_pad, qbuf, vecs.to(getattr(torch, dtype)), ids, sl, k,
+                                exact_ids=exact)
+        log(f"edges  rerank_topk_qbuf  {case}: ok{', ids equal' if exact else ''} (d "
+            f"{vecs.shape[2]}, {dtype}, rk {sl.shape[2]}, k {k}; max abs err {err:.3g})")
     for case in rt.KMEANS_CASES:
         (x, c), dtype, exact = rt.kmeans_case(case, width="main")
         x, c = (torch.from_numpy(a).to(dev).to(getattr(torch, dtype)) for a in (x, c))
@@ -591,6 +643,19 @@ def adc_bound(lut_pad, qbuf, codes, cand_ids, k, cand_off, q_off):
               + qbuf.numel() * k * 8)
     ops = float((occ * valid).sum()) * (m - 1 + (q_off is not None) + (cand_off is not None))
     return nbytes, ops, PEAK_OPS["float32"]
+
+
+def rerank_bound(q_pad, qbuf, vecs, ids, shortlist, k):
+    """Least time for the exact rerank, the work counted as the benchmark's
+    reader ``rerank_topk_qbuf_roofline`` counts it."""
+    import importlib.util
+
+    path = os.path.join(ROOT, "lirabench", "layers", "rerank_topk_qbuf_roofline.py")
+    spec = importlib.util.spec_from_file_location("rerank_topk_qbuf_roofline", path)
+    reader = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(reader)
+    nbytes, ops = reader.work(**reader.hook({}, q_pad, qbuf, vecs, ids, shortlist, k))
+    return float(nbytes), float(ops), PEAK_OPS["float32"]
 
 
 def scan_bound(q, cands, cand_ids, k):
@@ -1360,7 +1425,8 @@ def churn_phase(eng, ds, counters, smi) -> None:
     # (a) tombstones, then compaction
     slots = timed("delete", lambda: eng.delete(order[:n_dead]))
     holey, launches = counted(lambda: {t: eng.search(q, tier=t) for t in ("f32", "residual_pq")},
-                              ("l2_topk_qbuf", "pq_adc_topk_qbuf", "dedup_topk"))
+                              ("l2_topk_qbuf", "pq_adc_topk_qbuf", "rerank_topk_qbuf",
+                               "dedup_topk"))
     for tier, r in holey.items():
         if np.isin(r.ids, order[:n_dead]).any():
             raise AssertionError(f"churn: a deleted id surfaced ({tier})")
@@ -1615,9 +1681,113 @@ def u8_phase(smi, dev="cuda") -> dict:
     return entry
 
 
+RERANK_CONFIG = "lirabench/configs/lira-ann-q.json"   # the deployment the cell runs
+RERANK_BATCH = 8_192                                 # one call of its batch8k traffic
+
+
+def rerank_phase(smi, dev="cuda") -> dict:
+    """Phase 27: the quantized tiers' exact rerank at lira-ann-q's
+    deployment (the configuration file the benchmark's cell runs), built on
+    the card. One batch of 8,192 queries through search() with the launch
+    counters zeroed just before: the ADC scan, the rerank and dedup_topk once
+    each, the f32 scan not at all. The rerank on the operands the batch gave
+    it: held against its plain version under the comparison rule (the rows
+    whose ids equal element for element counted), inf / -1 on the empty
+    slots, two runs equal bit for bit; timed beside its bound and the plain
+    version, and with every slot empty. Returns its entry of the kernels
+    JSON."""
+    import torch
+
+    from lirabench import data as bench_data
+    from repro_torch import testing as rt
+    from repro_torch.kernels import dedup_topk as dd_mod, l2_topk as l2_mod
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import pq_adc as adc_mod
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import rerank_topk as rr_mod
+    from repro_torch.serving.api import BuildConfig
+    from repro_torch.serving.engine import LiraEngine
+
+    t_phase = time.perf_counter()
+    with open(os.path.join(ROOT, RERANK_CONFIG)) as f:
+        config = json.load(f)
+    n = int(config["n_points"])
+    base, queries = bench_data.make_vectors(config["data"], n, RERANK_BATCH, dev)
+    t0 = time.perf_counter()
+    eng = LiraEngine.build(base, BuildConfig(**config["build"]), device=dev)
+    torch.cuda.synchronize()
+    log(f"rerank build over {n} rows {time.perf_counter() - t0:.1f} s | capacity "
+        f"{eng.cfg.capacity} | {eng.cfg}")
+    del base
+    q_np = queries.cpu().numpy()
+    captured = {}
+    inner = kops.rerank_topk_qbuf
+
+    def capture(*args, **kw):
+        captured.setdefault("args", args)
+        return inner(*args, **kw)
+
+    counters = {"pq_adc_topk_qbuf": adc_mod, "rerank_topk_qbuf": rr_mod,
+                "dedup_topk": dd_mod, "l2_topk_qbuf": l2_mod}
+    eng.search(q_np)             # the batch's serve step built before the counted call
+    kops.rerank_topk_qbuf = capture
+    try:
+        for mod in counters.values():
+            mod.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.search(q_np)
+        call_ms = 1e3 * (time.perf_counter() - t0)
+        launches = {name: mod.launches for name, mod in counters.items()}
+    finally:
+        kops.rerank_topk_qbuf = inner
+    want = {"pq_adc_topk_qbuf": 1, "rerank_topk_qbuf": 1, "dedup_topk": 1, "l2_topk_qbuf": 0}
+    if launches != want or res.stats.tier != "residual_pq":
+        raise AssertionError(f"rerank batch: launches {launches}, tier {res.stats.tier}")
+    log(f"rerank one batch of {len(q_np)} queries in {call_ms:.1f} ms (tier {res.stats.tier}, "
+        f"impl {res.stats.impl}, mean nprobe_eff {float(res.nprobe_eff.mean()):.3f}, overflow "
+        f"{res.overflow}); launches {launches}")
+    del res, eng
+    torch.cuda.empty_cache()
+    q_pad, qbuf, vecs, ids, sl, k = captured.pop("args")
+    kd, ki = rr_mod.rerank_topk_qbuf(q_pad, qbuf, vecs, ids, sl, k)
+    again = rr_mod.rerank_topk_qbuf(q_pad, qbuf, vecs, ids, sl, k)
+    if not (torch.equal(kd.view(torch.int32), again[0].view(torch.int32))
+            and torch.equal(ki, again[1])):
+        raise AssertionError("rerank_topk_qbuf: two runs differ")
+    del kd, ki, again
+    err, rows_equal = compare_rerank("rerank_topk_qbuf at the batch's operands", q_pad, qbuf,
+                                     vecs, ids, sl, k)
+    ms = time_ms(lambda: rr_mod.rerank_topk_qbuf(q_pad, qbuf, vecs, ids, sl, k), 20)
+    plain_ms = time_ms(lambda: kref.rerank_topk_qbuf_ref(q_pad, qbuf, vecs, ids, sl, k), 2, 1)
+    bound = bound_entry(*rerank_bound(q_pad, qbuf, vecs, ids, sl, k))
+    qb_empty = torch.full_like(qbuf, q_pad.shape[0] - 1)
+    ms_empty = time_ms(lambda: rr_mod.rerank_topk_qbuf(q_pad, qb_empty, vecs, ids, sl, k), 10)
+    del qb_empty
+    regs = ptxas_report("rerank_topk_qbuf", "rerank_topk_qbuf_kernelIfLi4")
+    n_occ = int(rt.occupied(q_pad, qbuf).sum())
+    log(f"kernel rerank_topk_qbuf at the batch's operands (B {qbuf.shape[0]}, S "
+        f"{qbuf.shape[1]}, C {vecs.shape[1]}, d {vecs.shape[2]}, rk {sl.shape[2]}, k {k}, "
+        f"{n_occ} occupied slots): within l2_atol of its plain version (max abs err "
+        f"{err:.3g}), {rows_equal} of {n_occ} rows' ids equal element for element, two runs "
+        f"equal bit for bit; {ms:.3f} ms (plain {plain_ms:.1f} ms, bound {bound[0]:.3f} ms by "
+        f"{bound[1]}); every slot empty {ms_empty:.3f} ms; {regs}")
+    entry = kernel_entry(
+        "rerank_topk_qbuf", "rerank_topk_qbuf.cu", None, launches["rerank_topk_qbuf"], err, ms,
+        plain_ms, bound,
+        {"q_pad": list(q_pad.shape), "qbuf": list(qbuf.shape), "vecs": list(vecs.shape),
+         "rk": sl.shape[2], "k": k, "occupied_slots": n_occ, "rows_ids_equal": rows_equal,
+         "all_empty_ms": ms_empty, "registers": regs,
+         "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+    del q_pad, qbuf, vecs, ids, sl, captured, queries
+    torch.cuda.empty_cache()
+    log(f"rerank phase {time.perf_counter() - t_phase:.1f} s | {smi}")
+    return entry
+
+
 # ---------------------------------------------------------------- mesh and cluster
 
-SERVE_KERNELS = ("l2_topk_qbuf", "dedup_topk", "pq_adc_topk_qbuf")
+SERVE_KERNELS = ("l2_topk_qbuf", "dedup_topk", "pq_adc_topk_qbuf", "rerank_topk_qbuf")
 
 
 class Calls:
@@ -1652,6 +1822,7 @@ def hold_kernels(what, calls) -> dict:
     from repro_torch.kernels import dedup_topk as dd_mod, l2_topk as l2_mod
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import pq_adc as adc_mod
+    from repro_torch.kernels import rerank_topk as rr_mod
 
     out, seen = {}, set()
     for name, args, kw in calls:
@@ -1668,6 +1839,9 @@ def hold_kernels(what, calls) -> dict:
             pd, _, k = args
             kernel = lambda: dd_mod.dedup_topk(*args, **kw)  # noqa: E731
             bound = (pd.numel() * 8 + pd.shape[0] * k * 8, 0.0, PEAK_OPS["float32"])
+        elif name == "rerank_topk_qbuf":
+            err, _ = compare_rerank(f"{what} rerank_topk_qbuf {shape}", *args)
+            kernel, bound = (lambda: rr_mod.rerank_topk_qbuf(*args)), rerank_bound(*args)
         else:
             err = compare_adc(f"{what} pq_adc_topk_qbuf {shape}", *args, kw["cand_off"],
                               kw["q_off"])
@@ -1710,7 +1884,7 @@ def mesh_phase(eng, ds, counters, smi) -> dict:
     model 4), every rank on the card, held against the unsharded search
     (f32 bit for bit; residual_pq at rerank 4 under the comparison rule,
     rows equal bit for bit counted; dedup_hits at most the unsharded count),
-    with each rank's kernels launched and the three kernels held against
+    with each rank's kernels launched and the four serve kernels held against
     their plain versions at the meshed shapes; impl="cuda" against "ref" on
     the meshed step; then (data 2, model 2), each half of a batch equal bit
     for bit to an unsharded search of that half; with two cards or more, a
@@ -1746,7 +1920,9 @@ def mesh_phase(eng, ds, counters, smi) -> dict:
             launches = read(counters)
             scan = "l2_topk_qbuf" if tier == "f32" else "pq_adc_topk_qbuf"
             n_b = len(got)
-            if launches[scan] != model_n * n_b or launches["dedup_topk"] != (model_n + 1) * n_b:
+            rerank = model_n * n_b if tier == "residual_pq" else 0
+            if (launches[scan] != model_n * n_b or launches["dedup_topk"] != (model_n + 1) * n_b
+                    or launches["rerank_topk_qbuf"] != rerank):
                 raise AssertionError(f"mesh {what} {tier}: launches {launches}")
             ref, ref_secs = solo[tier]
             n_bits = n_rows = 0
@@ -1870,7 +2046,9 @@ def cluster_phase(ds, counters, gti, recall, smi) -> dict:
         res, secs = serve_batches(cl, q_all, tier)
         launches = read(counters)
         scan = "l2_topk_qbuf" if tier == "f32" else "pq_adc_topk_qbuf"
-        if launches[scan] != 4 * len(res) or launches["dedup_topk"] != 4 * len(res):
+        rerank = 4 * len(res) if tier == "residual_pq" else 0
+        if (launches[scan] != 4 * len(res) or launches["dedup_topk"] != 4 * len(res)
+                or launches["rerank_topk_qbuf"] != rerank):
             raise AssertionError(f"cluster {tier}: launches {launches}")
         ids = np.concatenate([r.ids for r in res])
         rec[tier] = recall_at_k(ids, gti, 100)
@@ -4174,6 +4352,7 @@ def last_toy_tier(ds, gti, recall_f32, smi, dev) -> dict:
     from repro_torch.kernels import dedup_topk as dd_mod, l2_topk as l2_mod
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import pq_adc as adc_mod
+    from repro_torch.kernels import rerank_topk as rr_mod
     from repro_torch.serving import tiers
     from repro_torch.serving.api import BuildConfig
     from repro_torch.serving.engine import LiraEngine
@@ -4203,11 +4382,12 @@ def last_toy_tier(ds, gti, recall_f32, smi, dev) -> dict:
         f"{eng.store['vectors'].numel() * 2 / 2**30:.3f} GiB | {eng.cfg}")
     if eng.cfg.tier != "bf16_toy" or eng.store["vectors"].dtype != torch.bfloat16:
         raise AssertionError(f"bf16_toy: tier {eng.cfg.tier}, vectors {eng.store['vectors'].dtype}")
-    counters = {"l2_topk_qbuf": l2_mod, "dedup_topk": dd_mod, "pq_adc_topk_qbuf": adc_mod}
+    counters = {"l2_topk_qbuf": l2_mod, "dedup_topk": dd_mod, "pq_adc_topk_qbuf": adc_mod,
+                "rerank_topk_qbuf": rr_mod}
     ids, launches = serve(eng, ds.queries, "bf16_toy", counters, len(ds.base), "last   bf16_toy")
     require_launched("last   bf16_toy", launches, ("l2_topk_qbuf", "dedup_topk"))
-    if launches["pq_adc_topk_qbuf"]:
-        raise AssertionError("bf16_toy launched the ADC scan")
+    if launches["pq_adc_topk_qbuf"] or launches["rerank_topk_qbuf"]:
+        raise AssertionError(f"bf16_toy launched a quantized stage: {launches}")
     rec = recall_at_k(ids, gti, 100)
     log(f"last   bf16_toy recall@100 {rec:.4f} against exact ground truth (phase 4's f32 "
         f"{recall_f32:.4f})")
@@ -4396,6 +4576,7 @@ def main(n_base: int = N_BASE, n_queries: int = N_QUERIES) -> int:
     from repro_torch.kernels import _build, dedup_topk as dd_mod, l2_topk as l2_mod
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import pq_adc as adc_mod
+    from repro_torch.kernels import rerank_topk as rr_mod
     from repro_torch.serving.api import BuildConfig
     from repro_torch.serving.engine import LiraEngine
     from repro_torch.utils.device import resolve_device
@@ -4431,7 +4612,8 @@ def main(n_base: int = N_BASE, n_queries: int = N_QUERIES) -> int:
     t0 = time.perf_counter()
     ds = make_vector_dataset(n=n_base, n_queries=n_queries, dim=128, seed=0)
     log(f"main   dataset {ds.base.shape} + {ds.queries.shape} in {time.perf_counter() - t0:.1f} s")
-    counters = {"l2_topk_qbuf": l2_mod, "dedup_topk": dd_mod, "pq_adc_topk_qbuf": adc_mod}
+    counters = {"l2_topk_qbuf": l2_mod, "dedup_topk": dd_mod, "pq_adc_topk_qbuf": adc_mod,
+                "rerank_topk_qbuf": rr_mod}
     captured = {}
 
     def capture(name, fn):
@@ -4465,13 +4647,17 @@ def main(n_base: int = N_BASE, n_queries: int = N_QUERIES) -> int:
     recall, inputs = {}, {}
     for path, engine, tier, needs in (
             ("f32", eng, "f32", ("l2_topk_qbuf", "dedup_topk")),
-            ("residual_pq", eng, "residual_pq", ("pq_adc_topk_qbuf", "dedup_topk")),
-            ("residual_pq rerank 16", deep, "residual_pq", ("pq_adc_topk_qbuf", "dedup_topk"))):
+            ("residual_pq", eng, "residual_pq",
+             ("pq_adc_topk_qbuf", "rerank_topk_qbuf", "dedup_topk")),
+            ("residual_pq rerank 16", deep, "residual_pq",
+             ("pq_adc_topk_qbuf", "rerank_topk_qbuf", "dedup_topk"))):
         captured.clear()
         what = f"main   {path}"
         ids_out, launches = serve(engine, ds.queries, tier, counters, n_base, what)
         inputs[path] = (dict(captured), launches)
         require_launched(what, launches, needs)
+        if tier == "f32" and (launches["pq_adc_topk_qbuf"] or launches["rerank_topk_qbuf"]):
+            raise AssertionError(f"{what}: a quantized stage launched: {launches}")
         recall[path] = recall_at_k(ids_out, gti, 100)
         log(f"{what}: recall@100 {recall[path]:.4f} against exact ground truth")
     for name, fn in orig.items():
@@ -4511,7 +4697,7 @@ def main(n_base: int = N_BASE, n_queries: int = N_QUERIES) -> int:
     del twin
     _, gti_pq = gt.exact_knn(ds.queries, pq_base, 100, device=dev)
     ids_pq, launches_pq = serve(eng_pq, ds.queries, "pq", counters, len(pq_base), "pq     pq")
-    require_launched("pq     pq", launches_pq, ("pq_adc_topk_qbuf", "dedup_topk"))
+    require_launched("pq     pq", launches_pq, ("pq_adc_topk_qbuf", "rerank_topk_qbuf", "dedup_topk"))
     ids_pf, _ = serve(eng_pq, ds.queries, "f32", counters, len(pq_base), "pq     f32")
     r_pq, r_pf = recall_at_k(ids_pq, gti_pq, 100), recall_at_k(ids_pf, gti_pq, 100)
     log(f"pq     recall@100 pq {r_pq:.4f}, its own f32 tier {r_pf:.4f}")
@@ -4613,6 +4799,25 @@ def main(n_base: int = N_BASE, n_queries: int = N_QUERIES) -> int:
         f"by {bound16[1]})")
     kernels[-1]["shapes"]["rerank16"] = {"k": rk16, "ms": ms16, "bound_ms": bound16[0],
                                          "bound_by": bound16[1]}
+    # stage 2 of both paths (rk = 400 and 1,600) at the operands the batch
+    # gave it; phase 27's entry carries these beside lira-ann-q's
+    main_rerank = []
+    for path in ("residual_pq", "residual_pq rerank 16"):
+        r_args, _ = inputs[path][0]["rerank_topk_qbuf"]
+        err_r, eq_r = compare_rerank(f"rerank_topk_qbuf {path} inputs", *r_args)
+        ms_r = time_ms(lambda: rr_mod.rerank_topk_qbuf(*r_args), 10)
+        plain_r = time_ms(lambda: kops.rerank_topk_qbuf(*r_args, impl="ref"), 2, 1)
+        bound_r = bound_entry(*rerank_bound(*r_args))
+        n_occ = int(rt.occupied(r_args[0], r_args[1]).sum())
+        log(f"kernel rerank_topk_qbuf at the {path} path's stage 2 (rk {r_args[4].shape[2]}, "
+            f"{n_occ} occupied slots): within l2_atol of its plain version (max abs err "
+            f"{err_r:.3g}), {eq_r} rows' ids equal element for element; {ms_r:.3f} ms (plain "
+            f"{plain_r:.3f} ms, bound {bound_r[0]:.3f} ms by {bound_r[1]})")
+        main_rerank.append({"path": path, "rk": r_args[4].shape[2], "occupied_slots": n_occ,
+                            "rows_ids_equal": eq_r, "max_abs_err": err_r, "ms": ms_r,
+                            "plain_ms": plain_r, "bound_ms": bound_r[0],
+                            "bound_by": bound_r[1]})
+    del r_args
     for k_ in (rk, rk16):
         log(f"kernel pq_adc_topk_qbuf launch shape at k {k_}: "
             f"{adc_mod.occupancy(lut, codes, k_)} (m {codes.shape[2]}, ks {lut.shape[2]}, "
@@ -4670,6 +4875,8 @@ def main(n_base: int = N_BASE, n_queries: int = N_QUERIES) -> int:
     del eng
     torch.cuda.empty_cache()
     kernels.append(u8_phase(smi))
+    kernels.append(rerank_phase(smi))
+    kernels[-1]["shapes"]["main_paths"] = main_rerank
     clustered = cluster_phase(ds, counters, gti, recall, smi)
     examples_phase()
     lm_phase(smi)

@@ -26,7 +26,7 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("l2_topk_qbuf", "dedup_topk", "pq_adc_topk_qbuf", "kmeans_assign", "l2_topk",
-           "pq_adc", "pq_adc_topk", "l2u8_topk_qbuf")
+           "pq_adc", "pq_adc_topk", "l2u8_topk_qbuf", "rerank_topk_qbuf")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

@@ -18,6 +18,7 @@ from repro_torch.kernels import l2_topk as _l2
 from repro_torch.kernels import l2u8_topk as _l2u8
 from repro_torch.kernels import pq_adc as _adc
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import rerank_topk as _rr
 
 IMPLS = ("ref", "cuda")
 
@@ -104,6 +105,21 @@ def pq_adc_topk_qbuf(lut_pad, qbuf, codes, cand_ids, k: int, *, cand_off=None, q
                                                   lut_pad.shape[2], k, codes.element_size()))
     return _adc.pq_adc_topk_qbuf(lut_pad, qbuf, codes, cand_ids, k,
                                  cand_off=cand_off, q_off=q_off, group=group or 0)
+
+
+def rerank_topk_qbuf(q_pad, qbuf, vecs, ids, shortlist, k: int, *, impl: str | None = None):
+    """The quantized tiers' exact rerank: compact f32 ``q_pad`` [R, d] +
+    ``qbuf`` [B, S] indices vs each slot's shortlist ``shortlist`` [B, S, rk]
+    of slot indices (-1 = none) into the [B, C, d] rows ``vecs`` (f32 or
+    bf16) with ``ids`` [B, C] → ([B, S, k] f32 distances, [B, S, k] ids),
+    the k smallest ||q||² − 2q·x + ||x||² in f32 of each occupied slot."""
+    impl = resolve_impl(impl, vecs.device)
+    qbuf = qbuf.to(torch.int32)
+    ids = ids.to(torch.int32)
+    shortlist = shortlist.to(torch.int32)
+    if impl == "ref":
+        return _ref.rerank_topk_qbuf_ref(q_pad, qbuf, vecs, ids, shortlist, k)
+    return _rr.rerank_topk_qbuf(q_pad, qbuf, vecs, ids, shortlist, k)
 
 
 def pq_adc(lut, codes, *, impl: str | None = None):

@@ -217,6 +217,46 @@ def pq_adc_topk_qbuf_ref(lut_pad: torch.Tensor, qbuf: torch.Tensor, codes: torch
     return out_d, out_i
 
 
+# elements of one rerank chunk's [pairs, rk, d] candidate gather
+_RERANK_CHUNK = 1 << 28
+
+
+def rerank_topk_qbuf_ref(q_pad: torch.Tensor, qbuf: torch.Tensor, vecs: torch.Tensor,
+                         ids: torch.Tensor, shortlist: torch.Tensor, k: int):
+    """The quantized tiers' exact f32 rerank: for each occupied slot of
+    ``qbuf`` [B, S] (``q_pad`` [R, d], row R-1 the empty slot's), the k
+    smallest ||q||² − 2q·x + ||x||² over the rows ``vecs[b, shortlist[b, s]]``
+    ([B, C, d] rows, [B, S, rk] slot indices, -1 = none), as
+    ([B, S, k] dists, [B, S, k] ids): +inf where the entry is -1 or its id
+    ``ids[b, slot]`` < 0, inf / -1 past rk, the lower position first on a
+    tie (a stable sort). Empty slots stay inf / -1. Chunked over the occupied
+    (bucket, slot) pairs, so the [pairs, rk, d] gather stays bounded."""
+    b_loc, q_cap = qbuf.shape
+    rk = shortlist.shape[2]
+    out_d = torch.full((b_loc, q_cap, k), torch.inf, dtype=torch.float32, device=qbuf.device)
+    out_i = torch.full((b_loc, q_cap, k), -1, dtype=torch.int32, device=qbuf.device)
+    bb, ss = torch.nonzero(qbuf < q_pad.shape[0] - 1, as_tuple=True)
+    step = max(1, _RERANK_CHUNK // max(1, rk * vecs.shape[2]))
+    for p0 in range(0, len(bb), step):
+        b, s = bb[p0:p0 + step], ss[p0:p0 + step]
+        short = shortlist[b, s].long()                           # [P, rk]
+        safe = short.clamp_min(0)
+        cid = torch.where(short >= 0, ids[b[:, None], safe], -1)
+        cand = vecs[b[:, None], safe].float()                    # [P, rk, d]
+        qs = q_pad[qbuf[b, s].long()].float()                    # [P, d]
+        d2 = ((qs * qs).sum(-1)[:, None]
+              - 2.0 * torch.bmm(cand, qs[:, :, None])[..., 0]
+              + (cand * cand).sum(-1))
+        d2 = torch.where(cid < 0, torch.inf, d2)
+        if d2.shape[1] < k:  # a shortlist shorter than k: pad to a defined top-k
+            d2 = torch.cat([d2, d2.new_full((d2.shape[0], k - d2.shape[1]), torch.inf)], 1)
+            cid = torch.cat([cid, cid.new_full((cid.shape[0], k - cid.shape[1]), -1)], 1)
+        top_d, pos = smallest_k(d2, k)
+        out_d[b, s] = top_d
+        out_i[b, s] = torch.gather(cid, 1, pos)
+    return out_d, out_i
+
+
 def dedup_topk_ref(dists: torch.Tensor, ids: torch.Tensor, k: int, *, dups=None):
     """Exact replica-aware merge of a candidate pool.
 

@@ -14,7 +14,8 @@ device) for its rows of the batch and its block of partitions:
   3. scan (serving/scan.py): ``kernels.l2_topk_qbuf`` per partition for the
      f32 tier, ``kernels.l2u8_topk_qbuf`` over byte rows for the u8 tier;
      for the quantized tiers an ADC shortlist through
-     ``kernels.pq_adc_topk_qbuf``, then an exact f32 rerank;
+     ``kernels.pq_adc_topk_qbuf``, then the exact f32 rerank
+     ``kernels.rerank_topk_qbuf``;
   4. merge: each query's dispatched lists gathered through a slot map into
      its [nprobe_max·k] pool, then the replica-aware ``kernels.dedup_topk``,
      which also counts the pool's duplicate ids; over more than one model
@@ -570,8 +571,10 @@ class LiraEngine:
         An entry is only a closure from ``make_serve_step``, so a hit saves
         no work yet: the cache keeps the reference's keys, LRU bound and
         invalidation (``SearchStats.cache_hit``, the q_cap bump, shape-changing
-        mutations) ready for entries captured as CUDA graphs, which stage 2's
-        host sync (``torch.nonzero`` in ``serving/scan.py``) still blocks."""
+        mutations) ready for entries captured as CUDA graphs. With
+        ``impl="cuda"`` no tier's scan waits on the host: the quantized
+        tiers' rerank is one kernel (``kernels.ops.rerank_topk_qbuf``); the
+        plain rerank still finds its occupied slots with ``torch.nonzero``."""
         # normalize before keying: None, "auto" and the resolved backend share
         # one entry; so do tier aliases and k=None
         impl = self.resolve_impl(impl)

@@ -11,10 +11,6 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.ref import smallest_k
-
-# elements of one rerank chunk's [pairs, rk, d] candidate gather
-_RERANK_CHUNK = 1 << 28
 
 
 def run(impl: str, qbuf, q_pad, vecs_loc, ids_loc, k: int, *, lut_pad=None, codes_loc=None,
@@ -50,7 +46,7 @@ def run(impl: str, qbuf, q_pad, vecs_loc, ids_loc, k: int, *, lut_pad=None, code
 
 def _quantized(impl, qbuf, q_pad, vecs_loc, ids_loc, k, lut_pad, codes_loc, rk, cterm_loc,
                off_loc):
-    b_loc, q_cap = qbuf.shape
+    b_loc = qbuf.shape[0]
     cap = vecs_loc.shape[1]
     # stage 1 ranks SLOT indices (-1 where the slot holds no id), so the
     # shortlist can gather the rerank operands
@@ -60,31 +56,8 @@ def _quantized(impl, qbuf, q_pad, vecs_loc, ids_loc, k, lut_pad, codes_loc, rk, 
     _, sl = kops.pq_adc_topk_qbuf(lut_pad, qbuf, codes_loc, slots, rk, cand_off=cterm_loc,
                                   q_off=qoff, impl=impl)
 
-    # stage 2: exact f32 rerank of the occupied slots' shortlists only; the
-    # empty slots' rows stay inf / -1. Chunked over (bucket, slot) pairs so
-    # the [pairs, rk, d] gather stays bounded.
-    out_d = torch.full((b_loc, q_cap, k), torch.inf, dtype=torch.float32, device=qbuf.device)
-    out_i = torch.full((b_loc, q_cap, k), -1, dtype=torch.int32, device=qbuf.device)
-    bb, ss = torch.nonzero(qbuf < q_pad.shape[0] - 1, as_tuple=True)
-    step = max(1, _RERANK_CHUNK // (rk * vecs_loc.shape[2]))
-    for p0 in range(0, len(bb), step):
-        b, s = bb[p0:p0 + step], ss[p0:p0 + step]
-        short = sl[b, s].long()                                  # [P, rk]
-        safe = short.clamp_min(0)
-        cid = torch.where(short >= 0, ids_loc[b[:, None], safe], -1)
-        cand = vecs_loc[b[:, None], safe].float()                # [P, rk, d]
-        qs = q_pad[qbuf[b, s].long()].float()                    # [P, d]
-        d2 = ((qs * qs).sum(-1)[:, None]
-              - 2.0 * torch.bmm(cand, qs[:, :, None])[..., 0]
-              + (cand * cand).sum(-1))
-        d2 = torch.where(cid < 0, torch.inf, d2)
-        if d2.shape[1] < k:  # a shortlist shorter than k: pad to a defined top-k
-            d2 = torch.cat([d2, d2.new_full((d2.shape[0], k - d2.shape[1]), torch.inf)], 1)
-            cid = torch.cat([cid, cid.new_full((cid.shape[0], k - cid.shape[1]), -1)], 1)
-        top_d, pos = smallest_k(d2, k)
-        out_d[b, s] = top_d
-        out_i[b, s] = torch.gather(cid, 1, pos)
-    return out_d, out_i
+    # stage 2: the exact f32 rerank of each occupied slot's shortlist
+    return kops.rerank_topk_qbuf(q_pad, qbuf, vecs_loc, ids_loc, sl, k, impl=impl)
 
 
 # ----------------------------------------------------------- bytes accounting

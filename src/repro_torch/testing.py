@@ -411,6 +411,78 @@ def adc_atol(lut_pad, cand_off=None, q_off=None) -> float:
     return 1e-5 * max(top, 1.0)
 
 
+# "small" runs in the CPU tests; "main" is the quantized serve path's rerank
+# (d = 128, a shortlist of rk = 400 slots, k = 100) for the card
+RERANK_WIDTHS = {"small": dict(b=4, s=12, c=60, d=32, n_rows=20, rk=16, k=7),
+                 "main": dict(b=8, s=16, c=1500, d=128, n_rows=300, rk=400, k=100)}
+
+# The cases of the exact rerank over a shortlist (case -> overrides of the
+# width's defaults, a function of the width).
+_RERANK_CASES = {
+    "holes+padding": lambda w: {},
+    "empty-slot rows": lambda w: dict(empty_frac=0.8),
+    # shortlist entries of -1 at two fifths of the positions, anywhere
+    "entries of -1": lambda w: dict(none_frac=0.4),
+    # half the slots are holes (id -1), so are half the entries' slots
+    "holes": lambda w: dict(hole_frac=0.5),
+    "rk<k": lambda w: dict(rk=w["k"] // 2),
+    "rk=k": lambda w: dict(rk=w["k"]),
+    # small-integer rows, each repeated under another id: exact distances
+    # that tie, where the lower shortlist position must win
+    "exact ties": lambda w: dict(integer=True),
+    # every row the same: one distance for every entry
+    "equal distances": lambda w: dict(integer=True, rows="equal"),
+    # each shortlist the slots in order, rows falling along each set: every
+    # entry beats the list, so the selection's buffer merges many times
+    "descending distances": lambda w: dict(integer=True, rows="descending", hole_frac=0.0,
+                                           none_frac=0.0, ordered=True),
+    # widths that are no multiple of a 16-byte vector (read element by
+    # element) and one of 9 vectors a row (a team's lanes read unequal shares)
+    "odd d": lambda w: dict(d=13),
+    "d = 36": lambda w: dict(d=36),
+    "bf16 store": lambda w: dict(dtype="bfloat16"),
+    "bf16 store, odd d": lambda w: dict(dtype="bfloat16", d=13),
+    # ||x||^2 overflows to +inf at a fifth of the rows, and at every valid
+    # row of set 1 but its first k // 2: +inf distances beside real ids
+    "overflowing distances": lambda w: dict(overflow=True),
+    # 40 occupied slots of one bucket: several blocks of it
+    "more slots than one block": lambda w: dict(s=40, empty_frac=0.0),
+    # rk = 1,600 at the main width, as rerank 16 gives
+    "deep shortlist": lambda w: dict(rk=4 * w["rk"], c=5 * w["rk"]),
+}
+RERANK_CASES = tuple(_RERANK_CASES)
+
+
+def rerank_case(case: str, *, width: str = "small", seed: int = 0):
+    """One edge case of the exact rerank: (q_pad [R, d] f32, qbuf [B, S]
+    int32, vecs [B, C, d] f32, ids [B, C] int32, shortlist [B, S, rk] int32)
+    as numpy, k, the store dtype's name, and whether ids must match exactly.
+    Bucket 0 has no valid id and the last bucket no occupied slot; each
+    shortlist names rk distinct slots of its bucket in a random order
+    (``ordered``: 0 … rk − 1), holes among them (``hole_frac``), and a share
+    ``none_frac`` of its entries is -1."""
+    w = RERANK_WIDTHS[width]
+    kw = {**w, "hole_frac": 0.15, "pad_tail": None, "empty_frac": 0.3, "none_frac": 0.1,
+          "ordered": False, **_L2_DEFAULTS, **_RERANK_CASES[case](w)}
+    b, s, c, d, n_rows, rk = (kw[n] for n in ("b", "s", "c", "d", "n_rows", "rk"))
+    rng = np.random.default_rng(seed)
+    q, vecs = _l2_rows(rng, kw, (n_rows,), b, c, d, "pairs")
+    q_pad = np.concatenate([q, np.full((1, d), 1e9, np.float32)])
+    ids = _l2_ids(rng, kw, b, c)
+    ids[0] = -1
+    qbuf = rng.integers(0, n_rows, (b, s)).astype(np.int32)
+    qbuf[rng.random((b, s)) < kw["empty_frac"]] = n_rows
+    qbuf[-1] = n_rows
+    if kw["ordered"]:
+        shortlist = np.broadcast_to(np.arange(rk), (b, s, rk)).copy()
+    else:
+        shortlist = np.stack([rng.permutation(c)[:rk] for _ in range(b * s)]).reshape(b, s, rk)
+    shortlist[rng.random(shortlist.shape) < kw["none_frac"]] = -1
+    _l2_overflow(rng, kw, vecs, ids, 1)
+    return ((q_pad, qbuf, vecs, ids, shortlist.astype(np.int32)), kw["k"], kw["dtype"],
+            kw["integer"])
+
+
 def kmeans_atol(x, centroids) -> float:
     """1e-5 · (max ‖x‖² + max ‖c‖²), at least 1e-5."""
     x, c = _tensor(x).float(), _tensor(centroids).float()

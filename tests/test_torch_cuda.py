@@ -19,6 +19,7 @@ from repro_torch.kernels import kmeans_assign as km_mod
 from repro_torch.kernels import l2_topk as l2_mod
 from repro_torch.kernels import pq_adc as adc_mod
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import rerank_topk as rr_mod
 
 
 @pytest.fixture
@@ -179,6 +180,109 @@ def test_pq_adc_wrapper_rejects_what_it_does_not_take(cuda_device):
         adc_mod.pq_adc_topk_qbuf(big, qbuf, torch.zeros((*ids.shape, 64), dtype=torch.uint16,
                                                         device=cuda_device), ids, k)
     assert adc_mod.launches == before
+
+
+def _rerank_inputs(case, dev, seed, width="small"):
+    (q_pad, qbuf, vecs, ids, sl), k, dtype, exact = rt.rerank_case(case, width=width, seed=seed)
+    args = [torch.from_numpy(a).to(dev) for a in (q_pad, qbuf, vecs, ids, sl)]
+    args[2] = args[2].to(getattr(torch, dtype))
+    return args, k, exact
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", rt.RERANK_CASES)
+def test_rerank_topk_qbuf_kernel_matches_plain(cuda_device, case):
+    """The kernel sums the expansion in another order than the plain
+    version's bmm: distances under l2_atol, ids equal up to ties at the
+    k-th place (element for element where the distances are exact)."""
+    args, k, exact = _rerank_inputs(case, cuda_device, 12)
+    before = rr_mod.launches
+    kd, ki = rr_mod.rerank_topk_qbuf(*args, k)
+    torch.cuda.synchronize()
+    assert rr_mod.launches == before + 1
+    pd, pi = tref.rerank_topk_qbuf_ref(*args, k)
+    q_pad, qbuf, vecs, ids, _ = args
+    occ = rt.occupied(q_pad, qbuf)
+    assert bool(torch.isinf(kd[~occ]).all()) and bool((ki[~occ] == -1).all())
+    rt.assert_topk_match(kd[occ], ki[occ], pd[occ], pi[occ],
+                         rt.qbuf_atol(q_pad, qbuf, vecs.float(), ids), exact_ids=exact, what=case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["holes+padding", "bf16 store", "odd d", "deep shortlist"])
+def test_rerank_topk_qbuf_kernel_repeats_its_bits(cuda_device, case):
+    """At the main path's widths: two runs of the kernel give equal bits."""
+    args, k, _ = _rerank_inputs(case, cuda_device, 13, width="main")
+    first = rr_mod.rerank_topk_qbuf(*args, k)
+    again = rr_mod.rerank_topk_qbuf(*args, k)
+    assert torch.equal(first[0].view(torch.int32), again[0].view(torch.int32))
+    assert torch.equal(first[1], again[1])
+
+
+@pytest.mark.cuda
+def test_rerank_wrapper_rejects_what_it_does_not_take(cuda_device):
+    (q_pad, qbuf, vecs, ids, sl), k, _ = _rerank_inputs("holes+padding", cuda_device, 14)
+    before = rr_mod.launches
+    with pytest.raises(TypeError):                       # a store of float64
+        rr_mod.rerank_topk_qbuf(q_pad, qbuf, vecs.double(), ids, sl, k)
+    with pytest.raises(TypeError):
+        rr_mod.rerank_topk_qbuf(q_pad.half(), qbuf, vecs, ids, sl, k)
+    with pytest.raises(TypeError):
+        rr_mod.rerank_topk_qbuf(q_pad, qbuf, vecs, ids, sl.long(), k)
+    with pytest.raises(ValueError):                      # d differs
+        rr_mod.rerank_topk_qbuf(q_pad[:, :5], qbuf, vecs, ids, sl, k)
+    with pytest.raises(ValueError):
+        rr_mod.rerank_topk_qbuf(q_pad, qbuf, vecs, ids[:, :5], sl, k)
+    with pytest.raises(ValueError):
+        rr_mod.rerank_topk_qbuf(q_pad, qbuf, vecs, ids, sl[:, :3], k)
+    with pytest.raises(ValueError):
+        rr_mod.rerank_topk_qbuf(q_pad.cpu(), qbuf, vecs, ids, sl, k)
+    with pytest.raises(ValueError):
+        rr_mod.rerank_topk_qbuf(q_pad, qbuf, vecs, ids, sl, 0)
+    # one pair's list of 40,000 keys (320 KB) exceeds a block's shared memory:
+    # the launch is refused
+    with pytest.raises(RuntimeError, match="k=40000"):
+        rr_mod.rerank_topk_qbuf(q_pad, qbuf, vecs, ids, sl, 40_000)
+    assert rr_mod.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("residual", [False, True])
+def test_quantized_scan_makes_no_host_sync(cuda_device, residual):
+    """With impl="cuda" the quantized scan, both stages, runs without a host
+    synchronization, and its answer meets the plain scan's under the rule."""
+    from repro_torch.serving import scan
+
+    case = "residual offsets" if residual else "holes+padding"
+    (lut_pad, qbuf, codes, _, coff, _), _, _ = rt.adc_case(case, seed=15)
+    b, n, _ = codes.shape
+    g = torch.Generator().manual_seed(15)
+    q_pad = torch.randn((lut_pad.shape[0], 24), generator=g)
+    q_pad[-1] = 1e9
+    vecs = torch.randn((b, n, 24), generator=g)
+    ids = torch.randperm(b * n, generator=g).reshape(b, n).to(torch.int32)
+    ids[torch.rand((b, n), generator=g) < 0.2] = -1
+    kw = dict(lut_pad=torch.from_numpy(lut_pad), codes_loc=torch.from_numpy(codes), rk=12)
+    if residual:
+        kw.update(cterm_loc=torch.from_numpy(coff),
+                  off_loc=torch.randn((b, lut_pad.shape[0]), generator=g))
+    qbuf = torch.from_numpy(qbuf)
+    k = 5
+    dev = {name: t.to(cuda_device) for name, t in kw.items() if torch.is_tensor(t)}
+    args = [t.to(cuda_device) for t in (qbuf, q_pad, vecs, ids)]
+    scan.run("cuda", *args, k, rk=kw["rk"], **dev)           # built and loaded first
+    torch.cuda.synchronize()
+    before = (adc_mod.launches, rr_mod.launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gd, gi = scan.run("cuda", *args, k, rk=kw["rk"], **dev)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert (adc_mod.launches, rr_mod.launches) == (before[0] + 1, before[1] + 1)
+    pd, pi = scan.run("ref", qbuf, q_pad, vecs, ids, k, **kw)
+    occ = rt.occupied(q_pad, qbuf)
+    rt.assert_topk_match(gd.cpu()[occ], gi.cpu()[occ], pd[occ], pi[occ],
+                         rt.qbuf_atol(q_pad, qbuf, vecs, ids))
 
 
 @pytest.mark.cuda
@@ -629,12 +733,13 @@ def test_meshed_step_kernels_match_plain(cuda_device, data, model):
     solo = LiraEngine.build(ds.base, bc, device=cuda_device)
     eng = dataclasses.replace(solo, mesh=make_test_mesh(data, model, device=cuda_device))
     for tier in ("f32", "residual_pq"):
-        before = (l2_mod.launches, dd_mod.launches, adc_mod.launches)
+        before = (l2_mod.launches, dd_mod.launches, adc_mod.launches, rr_mod.launches)
         got = eng.search(ds.queries, tier=tier, impl="cuda")
-        after = (l2_mod.launches, dd_mod.launches, adc_mod.launches)
+        after = (l2_mod.launches, dd_mod.launches, adc_mod.launches, rr_mod.launches)
         ranks = data * model
         scan = (ranks, 0) if tier == "f32" else (0, ranks)
         assert (after[0] - before[0], after[2] - before[2]) == scan
+        assert after[3] - before[3] == scan[1]               # the rerank once a rank
         assert after[1] - before[1] == ranks + data
         ref = eng.search(ds.queries, tier=tier, impl="ref")
         atol = rt.l2_atol(ds.queries, solo.store["vectors"], solo.store["ids"])
@@ -677,9 +782,10 @@ def test_ranks_on_the_card_over_a_store_elsewhere_follow_mutations(cuda_device):
         rt.assert_topk_match(first.dists, first.ids, want.dists, want.ids, atol, what=tier)
     dead = first.ids[:5, :2].reshape(-1)
     eng.delete(dead)
-    before = adc_mod.launches
+    before = (adc_mod.launches, rr_mod.launches)
     after = eng.search(ds.queries)
-    assert adc_mod.launches - before == 2
+    assert adc_mod.launches - before[0] == 2
+    assert rr_mod.launches - before[1] == 2
     assert eng.rank_operands() is not ranks and not np.isin(after.ids, dead).any()
 
 
@@ -694,9 +800,11 @@ def test_cluster_kernels_match_plain(cuda_device):
     atol = max(rt.l2_atol(ds.queries, g.engine.store["vectors"], g.engine.store["ids"])
                for g in cl.groups)
     for tier in ("f32", "residual_pq"):
-        before = dd_mod.launches
+        before = (dd_mod.launches, rr_mod.launches)
         got = cl.search(ds.queries, tier=tier, impl="cuda")
-        assert dd_mod.launches - before == 2     # one merge inside each shard engine
+        assert dd_mod.launches - before[0] == 2  # one merge inside each shard engine
+        # the rerank once inside each shard engine on the quantized tier
+        assert rr_mod.launches - before[1] == (2 if tier == "residual_pq" else 0)
         ref = cl.search(ds.queries, tier=tier, impl="ref")
         rt.assert_topk_match(got.dists, got.ids, ref.dists, ref.ids, atol, what=tier)
         assert got.stats.impl == "cuda" and ref.stats.impl == "ref"

@@ -297,10 +297,11 @@ def test_full_shortlist_equals_the_f32_scan(chunk, monkeypatch):
     included (inf / -1 tail); a rerank chunk of one (bucket, slot) pair
     changes nothing."""
     from repro_torch import testing as rtest
+    from repro_torch.kernels import ref as kref
     from repro_torch.serving import scan
 
     if chunk is not None:
-        monkeypatch.setattr(scan, "_RERANK_CHUNK", chunk)
+        monkeypatch.setattr(kref, "_RERANK_CHUNK", chunk)
     rng = np.random.default_rng(7)
     b, cap, d, n_rows, q_cap, k = 5, 9, 8, 11, 6, 12
     vecs = torch.from_numpy(rng.normal(size=(b, cap, d)).astype(np.float32))
